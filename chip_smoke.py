@@ -18,11 +18,21 @@ Phases (each raises on failure; nothing is caught and passed over):
    forward on the CPU, and forwards at 32 clips are timed;
 4. the HTTP server over a saved and reloaded serving module: single and
    concurrent /predict requests, rows equal to direct calls, /metrics
-   showing a coalesced batch.
+   showing a coalesced batch;
+5. the full-width flagship training step (128 clips x 16 frames of
+   240x320 uint8, device crop/mean/mirror, bf16, SGD at lr 0.001 with a
+   global-norm clip of 10, as the JAX bench.py trains): with the plain
+   versions locked out one step launches exactly 2 LRN, 2 LRN backward,
+   32 lstm_step and 1 conv1_dw_shifted kernels, and a step with
+   ``conv1_dw="blocked"`` launches 1 conv1_dw and moves conv1 as the
+   shifted one does; one float32 step at 1 clip agrees between the card
+   and the CPU; training steps are timed and one is profiled.
 
-The line before the last lists every ported kernel as JSON; the last line
-is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
-the package beside it, the script exits nonzero and prints no result.
+The line before the last lists every ported kernel as JSON (launches per
+serving forward for lrn and lstm_step, per training step for the
+backward kernels); the last line is ``{"ok": true, "device": {...}}``.
+Without a CUDA device, or without the package beside it, the script exits
+nonzero and prints no result.
 """
 
 import argparse
@@ -41,22 +51,27 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from video_learning_tpu_torch import serving
+from video_learning_tpu_torch import checkpoint, serving
 from video_learning_tpu_torch.flagship import (SERVING_IMGPROC, SERVING_MEAN,
                                                flagship)
 from video_learning_tpu_torch.ops import _build
+from video_learning_tpu_torch.ops import conv1_dw as conv1_mod
 from video_learning_tpu_torch.ops import lrn as lrn_mod
 from video_learning_tpu_torch.ops import lstm_step as lstm_mod
 from video_learning_tpu_torch.tools import serve as serve_mod
+from video_learning_tpu_torch.train import Train
 
-# H100 SXM published peaks (NVIDIA data sheet): HBM bandwidth and the
-# float32 rate outside the tensor cores
+# H100 SXM published peaks (NVIDIA data sheet): HBM bandwidth, the
+# float32 rate outside the tensor cores and the dense bf16 tensor-core
+# rate
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
+PEAK_BF16_OPS_PER_S = 989e12
 
 SERVE_CLIPS = 32        # clips per timed serving forward
 FPC, IMAGE, RAW_HW, CLASSES, HIDDEN, LAYERS = 16, 227, (240, 320), 101, 256, 2
 LRN_SITES = ((57, 57, 96), (28, 28, 256))   # conv1 and conv2 at 227x227
+TRAIN_CLIPS = 128       # clips per training step (bench.py's batch)
 
 
 def log(msg):
@@ -113,9 +128,9 @@ def eager_ms(fn, iters=100):
     return _events_ms(fn, iters)
 
 
-def bound_ms(nbytes, ops):
+def bound_ms(nbytes, ops, peak_ops=PEAK_F32_OPS_PER_S):
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_F32_OPS_PER_S * 1e3
+    t_ops = ops / peak_ops * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
                                  "operations")
 
@@ -206,11 +221,117 @@ def lstm_case(batch, gen):
     return case
 
 
+def lrn_bwd_case(n, h, w, c, dtype, gen, radius=2):
+    x = F.relu(torch.randn((n, h, w, c), generator=gen, device="cuda")
+               * 40.0).to(dtype)
+    g = torch.randn((n, h, w, c), generator=gen, device="cuda").to(dtype)
+    out = lrn_mod.lrn_backward(x, g, radius)
+    ref = lrn_mod.lrn_backward_reference(x, g, radius)
+    torch.cuda.synchronize()
+    # f32: the same formula, sums in the same order; bf16: dx within one
+    # bf16 ulp of the plain version
+    rtol, atol = ((1e-2, 1e-2 * float(g.float().abs().max()))
+                  if dtype == torch.bfloat16 else (1e-5, 1e-5))
+    abs_err, rel_err = errors(out, ref)
+    if not torch.allclose(out.float(), ref.float(), rtol=rtol, atol=atol):
+        raise AssertionError("lrn_bwd %s %s: kernel disagrees with plain "
+                             "(max abs %.3g, max rel %.3g; rtol %g atol %g)"
+                             % (tuple(x.shape), dtype, abs_err, rel_err,
+                                rtol, atol))
+    # library yardstick: autograd's backward of F.local_response_norm on
+    # the same channels_last input (the port never calls it)
+    size = 2 * radius + 1
+    xt = x.permute(0, 3, 1, 2).detach().requires_grad_(True)
+    y = F.local_response_norm(xt, size, alpha=size * 2e-5, beta=0.75, k=1.0)
+    gt = g.permute(0, 3, 1, 2)
+
+    def library():
+        return torch.autograd.grad(y, xt, gt, retain_graph=True)
+
+    lib_err = errors(library()[0].permute(0, 2, 3, 1), ref)[0]
+    numel = x.numel()
+    bnd, by = bound_ms(3 * numel * x.element_size(), 30 * numel)
+    case = {
+        "shape": list(x.shape), "dtype": str(dtype).replace("torch.", ""),
+        "radius": radius, "max_abs_err": abs_err, "max_rel_err": rel_err,
+        "rtol": rtol, "atol": atol,
+        "ms": cuda_ms(lambda: lrn_mod.lrn_backward(x, g, radius)),
+        "plain_ms": cuda_ms(
+            lambda: lrn_mod.lrn_backward_reference(x, g, radius)),
+        "library_ms": eager_ms(library, iters=5),
+        "library_max_abs_err": lib_err, "bound_ms": bnd, "bound_by": by}
+    log("  lrn_bwd %-18s %-8s r=%d max_abs %.3g max_rel %.3g | kernel "
+        "%.4f ms plain %.4f ms library %.4f ms bound %.1f us (%s)"
+        % (tuple(x.shape), case["dtype"], radius, abs_err, rel_err,
+           case["ms"], case["plain_ms"], case["library_ms"], bnd * 1e3, by))
+    del y, xt
+    return case
+
+
+def conv1_dw_case(fn, n, dtype, gen, check=True):
+    """One conv1 weight-gradient kernel at the training geometry (227x227
+    frames, a 57x57x96 gradient).  ``check``: compare with the plain
+    version (and time it); without, the plain version is timed once."""
+    x = torch.randn((n, IMAGE, IMAGE, 3), generator=gen,
+                    device="cuda").to(dtype)
+    oh = -(-IMAGE // 4)
+    g = torch.randn((n, oh, oh, 96), generator=gen, device="cuda").to(dtype)
+    plain = (conv1_mod.conv1_dw_reference if fn is conv1_mod.conv1_dw
+             else conv1_mod.conv1_dw_shifted_reference)
+    out = fn(x, g)
+    torch.cuda.synchronize()
+    case = {"shape": [n, IMAGE, IMAGE, 3], "dtype":
+            str(dtype).replace("torch.", "")}
+    if check:
+        ref = plain(x, g)
+        torch.cuda.synchronize()
+        # float32 sums in another order (bf16 products are exact in f32)
+        atol = 1e-5 * float(ref.abs().max())
+        abs_err, rel_err = errors(out, ref)
+        if not torch.allclose(out, ref, rtol=1e-5, atol=atol):
+            raise AssertionError(
+                "%s %s %s: kernel disagrees with plain (max abs %.3g; rtol "
+                "1e-5 atol %.3g)" % (fn.__name__, case["shape"], dtype,
+                                     abs_err, atol))
+        if not torch.equal(fn(x, g), out):
+            raise AssertionError("%s: two runs differ" % fn.__name__)
+        case.update(max_abs_err=abs_err, max_rel_err=rel_err, rtol=1e-5,
+                    atol=atol, plain_ms=cuda_ms(lambda: plain(x, g),
+                                                iters=2, reps=2))
+    else:
+        case["plain_ms"] = eager_ms(lambda: plain(x, g), iters=2)
+    xn, gn = x.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)
+
+    def library():
+        return torch.nn.grad.conv2d_weight(xn, (96, 3, 11, 11), gn,
+                                           stride=4, padding=4)
+
+    nbytes = x.numel() * x.element_size() + g.numel() * g.element_size() \
+        + 11 * 11 * 3 * 96 * 4
+    ops = 2 * 11 * 11 * 3 * 96 * n * oh * oh
+    bnd, by = bound_ms(nbytes, ops, PEAK_BF16_OPS_PER_S
+                       if dtype == torch.bfloat16 else PEAK_F32_OPS_PER_S)
+    case.update(ms=cuda_ms(lambda: fn(x, g), iters=3, reps=3),
+                library_ms=cuda_ms(library, iters=3, reps=3),
+                bound_ms=bnd, bound_by=by,
+                helpers_ms=cuda_ms(
+                    lambda: conv1_mod.conv1_s2d_geometry(x, oh, oh)
+                    .contiguous(), iters=3, reps=3))
+    log("  %-16s %-18s %-8s %s| kernel %.3f ms (torch s2d rearrangement "
+        "alone %.3f ms) plain %.3f ms library %.3f ms bound %.3f ms (%s)"
+        % (fn.__name__, tuple(case["shape"]), case["dtype"],
+           "max_abs %.3g " % case["max_abs_err"] if check else "",
+           case["ms"], case["helpers_ms"], case["plain_ms"],
+           case["library_ms"], bnd, by))
+    return case
+
+
 def phase_kernels(clips):
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(0)
     n_frames = clips * FPC
+    train_frames = TRAIN_CLIPS * FPC
     log("phase 2: kernels against their plain versions")
     lrn_cases = [lrn_case(8 * FPC, *site, dtype, gen)
                  for site in LRN_SITES
@@ -222,37 +343,63 @@ def phase_kernels(clips):
                 for site in LRN_SITES]
     lstm_cases = [lstm_case(b, gen) for b in (1, 8, 128)]
     lstm_main = lstm_case(clips, gen)
+    bwd_cases = [lrn_bwd_case(8 * FPC, *site, dtype, gen)
+                 for site in LRN_SITES
+                 for dtype in (torch.bfloat16, torch.float32)]
+    bwd_cases += [lrn_bwd_case(8 * FPC, 5, 5, 7, torch.float32, gen),
+                  lrn_bwd_case(8 * FPC, 5, 5, 40, torch.bfloat16, gen,
+                               radius=3)]
+    bwd_main = [lrn_bwd_case(train_frames, *site, torch.bfloat16, gen)
+                for site in LRN_SITES]
+    dw = {}
+    for fn in (conv1_mod.conv1_dw, conv1_mod.conv1_dw_shifted):
+        cases = [conv1_dw_case(fn, 256, dtype, gen)
+                 for dtype in (torch.bfloat16, torch.float32)]
+        main = conv1_dw_case(fn, train_frames, torch.bfloat16, gen,
+                             check=False)
+        dw[fn.__name__] = (cases + [main], [main])
     return {"lrn": (lrn_cases + lrn_main, lrn_main),
             "lstm_step": (lstm_cases + [lstm_main], [lstm_main] *
-                          (FPC * LAYERS))}
+                          (FPC * LAYERS)),
+            "lrn_bwd": (bwd_cases + bwd_main, bwd_main), **dw}
 
 
 # ------------------------------------------------------------- phase 3
+_PLAIN = ((lrn_mod, "lrn_reference"), (lrn_mod, "lrn_backward_reference"),
+          (lstm_mod, "lstm_step_reference"),
+          (conv1_mod, "conv1_dw_reference"),
+          (conv1_mod, "conv1_dw_shifted_reference"))
+# each kernel wrapper, by the name its count goes under
+_WRAPPERS = {"lrn": lrn_mod.lrn, "lrn_bwd": lrn_mod.lrn_backward,
+             "lstm_step": lstm_mod.lstm_step, "conv1_dw": conv1_mod.conv1_dw,
+             "conv1_dw_shifted": conv1_mod.conv1_dw_shifted}
+
+
 class _PlainLockedOut:
     """Makes the plain versions raise while the main path runs: the
     kernels' wrappers must not reach them for CUDA tensors."""
 
     def __enter__(self):
-        self.saved = (lrn_mod.lrn_reference, lstm_mod.lstm_step_reference)
+        self.saved = [getattr(mod, name) for mod, name in _PLAIN]
 
         def forbidden(*args, **kwargs):
             raise AssertionError("plain version called on the main path")
 
-        lrn_mod.lrn_reference = forbidden
-        lstm_mod.lstm_step_reference = forbidden
+        for mod, name in _PLAIN:
+            setattr(mod, name, forbidden)
 
     def __exit__(self, *exc):
-        lrn_mod.lrn_reference, lstm_mod.lstm_step_reference = self.saved
+        for (mod, name), fn in zip(_PLAIN, self.saved):
+            setattr(mod, name, fn)
 
 
 def reset_counts():
-    lrn_mod.lrn.launches = 0
-    lstm_mod.lstm_step.launches = 0
+    for fn in _WRAPPERS.values():
+        fn.launches = 0
 
 
-def counts():
-    return {"lrn": lrn_mod.lrn.launches,
-            "lstm_step": lstm_mod.lstm_step.launches}
+def counts(names=("lrn", "lstm_step")):
+    return {name: _WRAPPERS[name].launches for name in names}
 
 
 def serving_inputs(processor, clips, seed):
@@ -342,30 +489,9 @@ def phase_forward(results):
            SERVE_CLIPS / host_s))
 
     # where the device time goes in one forward
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        module(frames_dev, prm_dev)
-        torch.cuda.synchronize()
-    # kernel rows only (the aten rows would count their kernels twice)
-    rows = sorted(((ev.self_device_time_total, ev.key, ev.count)
-                   for ev in prof.key_averages()
-                   if ev.device_type == DeviceType.CUDA and
-                   ev.self_device_time_total > 0), reverse=True)
-    total = sum(r[0] for r in rows)
-    results["profile_kernel_us_total"] = total
-    results["profile_kernels"] = [{"name": k, "device_us": us, "calls": n}
-                                  for us, k, n in rows[:20]]
-    if total:
-        log("  profiler, one %d-clip forward: %.0f us of kernel time "
-            "(%.0f%% of the %.2f ms forward)"
-            % (SERVE_CLIPS, total, 100 * total / (dev_s * 1e6), dev_s * 1e3))
-        for us, k, n in rows[:14]:
-            log("    %8.0f us %5.1f%% x%-4d %s"
-                % (us, 100 * us / total, n, k[:90]))
-    else:
-        log("  profiler recorded no device time")
+    profile_rows("one %d-clip forward" % SERVE_CLIPS,
+                 lambda: module(frames_dev, prm_dev), dev_s, results,
+                 "profile_kernels", top=14)
     return model, params, processor
 
 
@@ -494,16 +620,203 @@ def phase_serve(model, params, processor, results):
                         "rows_vs_direct_max_abs": worst}
 
 
+# ------------------------------------------------------------- phase 5
+TRAIN_KERNELS = ("lrn", "lrn_bwd", "lstm_step", "conv1_dw",
+                 "conv1_dw_shifted")
+
+
+def training_flagship(clips, compute_dtype, **train_kw):
+    """The JAX bench.py training configuration (bench.py:54-59)."""
+    kw = dict(num_classes=CLASSES, fpc=FPC, image=IMAGE,
+              lstm=(HIDDEN, LAYERS), raw_hw=RAW_HW, mean_scalars=SERVING_MEAN,
+              device_preprocess=True, batch_size=clips,
+              compute_dtype=compute_dtype, num_batches=1000, base_lr=0.001,
+              lr_mult=None, clip_norm=10.0)
+    kw.update(train_kw)
+    return flagship(**kw)
+
+
+def training_feed(processor, clips, seed, device):
+    """Raw uint8 frames made on the device from a seed, the host-drawn
+    crop/mirror parameters, one-hot labels."""
+    n = clips * FPC
+    gen = torch.Generator(device=device).manual_seed(seed)
+    frames = torch.randint(0, 256, (n,) + RAW_HW + (3,), generator=gen,
+                           device=device, dtype=torch.uint8)
+    labels = np.eye(CLASSES, dtype=np.int32)[
+        np.random.RandomState(seed).randint(0, CLASSES, clips)]
+    return {"frames_main_input": frames,
+            "frames_main_input/proc_params": torch.from_numpy(
+                processor.draw_params(n, random.Random(seed))).to(device),
+            "labels": torch.from_numpy(labels).to(device)}
+
+
+def conv1_w(engine):
+    return checkpoint.flatten_tree(engine.params)[
+        "frames/dcnn/conv1/w"].detach().clone()
+
+
+def locked_step(engine, feed):
+    """One training step with every count at 0 just before and the plain
+    versions locked out; returns (metrics, launches)."""
+    reset_counts()
+    with _PlainLockedOut():
+        metrics = engine.run_step(dict(feed))
+        torch.cuda.synchronize()
+    return metrics, counts(TRAIN_KERNELS)
+
+
+def phase_train(results):
+    log("phase 5: full-width training step (%d clips x %d frames, bf16)"
+        % (TRAIN_CLIPS, FPC))
+    settings, model = training_flagship(TRAIN_CLIPS, "bfloat16")
+    processor = settings.feeder.datasets[0].processor
+    feed = training_feed(processor, TRAIN_CLIPS, 0, "cuda")
+    t0 = time.monotonic()
+    shifted = Train(settings, settings.feeder, model, seed=0, device="cuda")
+    blocked = Train(settings, settings.feeder, model, seed=0, device="cuda",
+                    conv1_dw="blocked")
+    log("  two engines from seed 0: %.1f s" % (time.monotonic() - t0))
+    w0 = conv1_w(shifted)
+    t0 = time.monotonic()
+    m_shift, launched = locked_step(shifted, feed)
+    log("  first step %.1f s: %s; launched %s"
+        % (time.monotonic() - t0, m_shift, launched))
+    want = {"lrn": 2, "lrn_bwd": 2, "lstm_step": FPC * LAYERS,
+            "conv1_dw": 0, "conv1_dw_shifted": 1}
+    if launched != want:
+        raise AssertionError("one training step launched %s, expected %s"
+                             % (launched, want))
+    if not all(math.isfinite(v) for v in m_shift.values()):
+        raise AssertionError("non-finite metrics %s" % m_shift)
+    m_block, launched_b = locked_step(blocked, feed)
+    want_b = dict(want, conv1_dw=1, conv1_dw_shifted=0)
+    log("  conv1_dw=\"blocked\" step: %s; launched %s"
+        % (m_block, launched_b))
+    if launched_b != want_b:
+        raise AssertionError("the blocked step launched %s, expected %s"
+                             % (launched_b, want_b))
+    # the same start, feed and dropout: conv1 moves by -lr x (clipped) dW
+    # in both.  dW is rounded to bf16 once, so the two sums' order may
+    # flip one bf16 rounding (2^-8 relative) and the clip factor differs
+    # by the other gradients' reassociation: rtol 2^-7, atol 1e-3 x max.
+    d_s, d_b = conv1_w(shifted) - w0, conv1_w(blocked) - w0
+    step_err = float((d_s - d_b).abs().max())
+    if not torch.allclose(d_b, d_s, rtol=2 ** -7,
+                          atol=1e-3 * float(d_s.abs().max())) or \
+            float(d_s.abs().max()) == 0.0:
+        raise AssertionError("conv1 steps differ: shifted vs blocked max "
+                             "abs %.3g of %.3g" % (step_err,
+                                                   float(d_s.abs().max())))
+    log("  conv1 step, blocked vs shifted: max abs %.3g of max %.3g"
+        % (step_err, float(d_s.abs().max())))
+    results["train_launches"] = launched
+    results["train_launches_blocked"] = launched_b
+    results["train_conv1_step_blocked_vs_shifted_max_abs"] = step_err
+    del blocked
+
+    train_card_vs_cpu(results)
+
+    # throughput: steps on a device-resident feed, host clock around
+    # steps that end in a sync
+    feeds = [training_feed(processor, TRAIN_CLIPS, s, "cuda")
+             for s in (1, 2)]
+    for f in feeds:
+        shifted.run_step(dict(f))
+    torch.cuda.synchronize()
+    reps = 6
+    t0 = time.monotonic()
+    for i in range(reps):
+        shifted.run_step(dict(feeds[i % 2]))
+    torch.cuda.synchronize()
+    step_s = (time.monotonic() - t0) / reps
+    results["train_step_ms"] = step_s * 1e3
+    results["train_clips_per_s"] = TRAIN_CLIPS / step_s
+    results["train_peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    log("  %d-clip training step: %.2f ms = %.1f clips/s; peak memory "
+        "%.1f GB" % (TRAIN_CLIPS, step_s * 1e3, TRAIN_CLIPS / step_s,
+                     results["train_peak_mem_gb"]))
+    profile_rows("one training step", lambda: shifted.run_step(
+        dict(feeds[0])), step_s, results, "train_profile")
+
+
+def train_card_vs_cpu(results):
+    """One float32 step at 1 clip, on the card and on the CPU from the
+    same parameters and feed.  SGD at lr 1 without clipping, so each
+    parameter moves by exactly minus its gradient."""
+    settings, model = training_flagship(1, "float32", base_lr=1.0,
+                                        clip_norm=None)
+    processor = settings.feeder.datasets[0].processor
+    start = model.init_params(seed=3, device="cpu")
+    feed = training_feed(processor, 1, 5, "cpu")
+    steps = {}
+    for device in ("cuda", "cpu"):
+        eng = Train(settings, settings.feeder, model, params=start,
+                    device=device)
+        before = {k: v.detach().cpu().clone() for k, v in
+                  checkpoint.flatten_tree(eng.params).items()}
+        metrics = eng.run_step(dict(feed))
+        after = checkpoint.flatten_tree(eng.params)
+        steps[device] = (metrics, {k: after[k].detach().cpu() - before[k]
+                                   for k in before})
+    (m_gpu, g_gpu), (m_cpu, g_cpu) = steps["cuda"], steps["cpu"]
+    # float32 on both (TF32 off): sums run in other orders, and a relu
+    # whose input lies within rounding of zero may switch on one side
+    # only, which moves a few gradient elements outright; so the loss is
+    # held to 1e-4 relative and each gradient tensor to 1e-2 normwise
+    loss_err = abs(m_gpu["loss"] - m_cpu["loss"]) / abs(m_cpu["loss"])
+    worst = max(float((g_gpu[k] - g_cpu[k]).norm() /
+                      g_cpu[k].norm().clamp_min(1e-30)) for k in g_cpu)
+    log("  float32 step at 1 clip, card vs CPU: loss %.7g vs %.7g (rel "
+        "%.3g, tolerance 1e-4); worst gradient tensor rel norm %.3g "
+        "(tolerance 1e-2)" % (m_gpu["loss"], m_cpu["loss"], loss_err,
+                              worst))
+    if not (loss_err <= 1e-4 and worst <= 1e-2):
+        raise AssertionError("card and CPU training steps disagree")
+    if any(float(g.abs().max()) == 0.0 for k, g in g_cpu.items()
+           if k.endswith("/w")):
+        raise AssertionError("a weight got no gradient")
+    results["train_fp32_card_vs_cpu"] = {"loss_rel": loss_err,
+                                         "grad_rel_norm_max": worst}
+
+
+def profile_rows(what, fn, wall_s, results, key, top=16):
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    # kernel rows only (the aten rows would count their kernels twice)
+    rows = sorted(((ev.self_device_time_total, ev.key, ev.count)
+                   for ev in prof.key_averages()
+                   if ev.device_type == DeviceType.CUDA and
+                   ev.self_device_time_total > 0), reverse=True)
+    total = sum(r[0] for r in rows)
+    results[key + "_kernel_us_total"] = total
+    results[key] = [{"name": k, "device_us": us, "calls": n}
+                    for us, k, n in rows[:30]]
+    if not total:
+        log("  profiler recorded no device time")
+        return
+    log("  profiler, %s: %.0f us of kernel time (%.0f%% of %.2f ms)"
+        % (what, total, 100 * total / (wall_s * 1e6), wall_s * 1e3))
+    for us, k, n in rows[:top]:
+        log("    %8.0f us %5.1f%% x%-4d %s" % (us, 100 * us / total, n,
+                                             k[:90]))
+
+
 # ---------------------------------------------------------------- main
 def kernel_entry(name, source, replaces, launches, cases, main_cases):
     """One kernel's line entry.  Times and bounds are for the launches of
-    one serving forward of SERVE_CLIPS clips (the sum over its launch
-    sites); errors are the worst over every case run."""
+    the main path's run (the sum over its launch sites); errors are the
+    worst over every case run."""
     lib = [c["library_ms"] for c in main_cases]
     return {
         "name": name, "route": "cuda", "source": source,
         "replaces": replaces, "launches": launches,
-        "max_abs_err": max(c["max_abs_err"] for c in cases),
+        "max_abs_err": max(c["max_abs_err"] for c in cases
+                           if "max_abs_err" in c),
         "ms": sum(c["ms"] for c in main_cases),
         "plain_ms": sum(c["plain_ms"] for c in main_cases),
         "bound_ms": sum(c["bound_ms"] for c in main_cases),
@@ -539,17 +852,25 @@ def main(argv=None):
     results["kernel_cases"] = {k: v[0] for k, v in kernels.items()}
     model, params, processor = phase_forward(results)
     phase_serve(model, params, processor, results)
+    del model, params, processor
+    torch.cuda.empty_cache()
+    phase_train(results)
 
-    launches = results["main_path_launches"]
+    launches = dict(results["main_path_launches"],
+                    lrn_bwd=results["train_launches"]["lrn_bwd"],
+                    conv1_dw=results["train_launches_blocked"]["conv1_dw"],
+                    conv1_dw_shifted=results["train_launches"][
+                        "conv1_dw_shifted"])
+    csrc = "video_learning_tpu_torch/csrc/"
+    tpu = "video_learning_tpu/ops/pallas_kernels.py:"
     line = {"kernels": [
-        kernel_entry("lrn", "video_learning_tpu_torch/csrc/lrn.cu",
-                     "video_learning_tpu/ops/pallas_kernels.py:149",
-                     launches["lrn"], *kernels["lrn"]),
-        kernel_entry("lstm_step",
-                     "video_learning_tpu_torch/csrc/lstm_step.cu",
-                     "video_learning_tpu/ops/pallas_kernels.py:201",
-                     launches["lstm_step"], *kernels["lstm_step"]),
-    ]}
+        kernel_entry(name, csrc + source, tpu + str(at), launches[name],
+                     *kernels[name])
+        for name, source, at in (
+            ("lrn", "lrn.cu", 149), ("lrn_bwd", "lrn_bwd.cu", 169),
+            ("lstm_step", "lstm_step.cu", 201),
+            ("conv1_dw", "conv1_dw.cu", 263),
+            ("conv1_dw_shifted", "conv1_dw.cu", 373))]}
     results["kernels"] = line["kernels"]
     results["total_s"] = time.monotonic() - t_start
     if args.out:

@@ -72,3 +72,81 @@ def test_kernels_refuse_what_they_do_not_take(gen):
     args[0] = args[0].double()
     with pytest.raises(FrameworkError):
         lstm_mod.lstm_step(*args)
+
+
+# the two AlexNet training sites (conv1, conv2), a ragged channel count,
+# and a radius the kernel does not unroll
+@pytest.mark.cuda
+@pytest.mark.parametrize("channels,radius", [(96, 2), (256, 2), (7, 2),
+                                             (40, 3)])
+def test_lrn_backward_kernel_matches_plain(gen, channels, radius):
+    x = torch.relu(torch.randn((4, 9, 9, channels), generator=gen,
+                               device="cuda") * 40)
+    g = torch.randn((4, 9, 9, channels), generator=gen, device="cuda")
+    before = lrn_mod.lrn_backward.launches
+    torch.testing.assert_close(lrn_mod.lrn_backward(x, g, radius),
+                               lrn_mod.lrn_backward_reference(x, g, radius),
+                               rtol=1e-5, atol=1e-5)
+    xb, gb = x.to(torch.bfloat16), g.to(torch.bfloat16)
+    # bf16 dx: within one bf16 ulp of the plain version
+    torch.testing.assert_close(
+        lrn_mod.lrn_backward(xb, gb, radius).float(),
+        lrn_mod.lrn_backward_reference(xb, gb, radius).float(),
+        rtol=1e-2, atol=1e-2 * float(g.abs().max()))
+    assert lrn_mod.lrn_backward.launches == before + 2
+
+
+# (39, 43) and (45, 37) as in the CPU tests; (40, 42) pads asymmetrically
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(3, 39, 43, 3), (2, 45, 37, 3),
+                                   (5, 40, 42, 3)])
+def test_conv1_dw_kernels_match_plain(gen, shape, dtype):
+    from video_learning_tpu_torch.ops import conv1_dw as c1
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False    # a float32 reference
+    try:
+        x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+        gout = torch.randn((shape[0], -(-shape[1] // 4), -(-shape[2] // 4),
+                            96), generator=gen, device="cuda").to(dtype)
+        ref = c1.conv1_dw_reference(x, gout)
+        before = (c1.conv1_dw.launches, c1.conv1_dw_shifted.launches)
+        # float32 sums in another order; bf16 products are exact in f32
+        tol = dict(rtol=1e-5, atol=1e-5 * float(ref.abs().max()))
+        for out in (c1.conv1_dw(x, gout), c1.conv1_dw(x, gout,
+                                                       block_images=1),
+                    c1.conv1_dw_shifted(x, gout),
+                    c1.conv1_dw_shifted(x, gout, block_rows=200)):
+            assert out.dtype == torch.float32 and out.shape == ref.shape
+            torch.testing.assert_close(out, ref, **tol)
+        assert (c1.conv1_dw.launches, c1.conv1_dw_shifted.launches) == \
+            (before[0] + 2, before[1] + 2)
+        # fixed-order reduction, no atomics: the same bits every run
+        assert torch.equal(c1.conv1_dw_shifted(x, gout),
+                           c1.conv1_dw_shifted(x, gout))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+@pytest.mark.cuda
+def test_bare_wrappers_refuse_tensors_that_need_a_gradient(gen):
+    """A kernel's output has no grad_fn: the bare wrappers raise instead
+    of handing back a detached result, and the autograd Functions carry
+    the gradient."""
+    from video_learning_tpu_torch.ops.lstm_step import LSTMStepFunction
+    from video_learning_tpu_torch.utils import FrameworkError
+    x = torch.rand((2, 3, 3, 8), generator=gen,
+                   device="cuda").requires_grad_(True)
+    with pytest.raises(FrameworkError, match="LRNFunction"):
+        lrn_mod.lrn(x)
+    with torch.no_grad():
+        lrn_mod.lrn(x)
+    lrn_mod.LRNFunction.apply(x, 2, 1.0, 2e-5, 0.75).sum().backward()
+    assert x.grad is not None and bool(x.grad.abs().sum() > 0)
+    args = [torch.randn(s, generator=gen, device="cuda").requires_grad_(True)
+            for s in ((2, 64), (2, 16), (2, 16), (16, 64), (64,))]
+    with pytest.raises(FrameworkError, match="LSTMStepFunction"):
+        lstm_mod.lstm_step(*args)
+    h, c = LSTMStepFunction.apply(*args)
+    (h.sum() + c.sum()).backward()
+    assert all(a.grad is not None for a in args)

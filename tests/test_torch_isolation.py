@@ -42,11 +42,26 @@ def test_no_jax_or_jax_package_imports():
     for path in _port_sources():
         for name, _ in _imported_modules(path):
             root = name.split(".")[0]
-            if root in ("jax", "jaxlib", "video_learning_tpu"):
+            if root in ("jax", "jaxlib", "optax", "video_learning_tpu"):
                 bad.append("%s imports %s" % (os.path.relpath(path, REPO),
                                               name))
     assert not bad, "\n".join(bad)
     assert len(_port_sources()) > 15
+
+
+def test_training_slice_modules_are_checked():
+    """The training slice's modules are among the sources checked above
+    and import neither JAX, optax nor the JAX package."""
+    sources = {os.path.relpath(p, REPO) for p in _port_sources()}
+    for rel in ("video_learning_tpu_torch/train.py",
+                "video_learning_tpu_torch/ops/conv1_dw.py",
+                "video_learning_tpu_torch/ops/lrn.py",
+                "video_learning_tpu_torch/ops/lstm_step.py",
+                "video_learning_tpu_torch/models/alexnet.py"):
+        assert rel in sources
+        roots = {n.split(".")[0]
+                 for n, _ in _imported_modules(os.path.join(REPO, rel))}
+        assert not roots & {"jax", "jaxlib", "optax", "video_learning_tpu"}
 
 
 def test_no_yaml_or_pil_at_module_level():
@@ -59,7 +74,8 @@ def test_no_yaml_or_pil_at_module_level():
 def test_imports_with_jax_yaml_and_pil_blocked():
     code = (
         "import sys, pkgutil, importlib\n"
-        "for m in ('jax', 'jaxlib', 'yaml', 'PIL', 'video_learning_tpu'):\n"
+        "for m in ('jax', 'jaxlib', 'optax', 'yaml', 'PIL',"
+        " 'video_learning_tpu'):\n"
         "    sys.modules[m] = None\n"
         "import video_learning_tpu_torch as p\n"
         "names = [m.name for m in pkgutil.walk_packages(p.__path__,"
@@ -114,3 +130,20 @@ def test_entry_points_refuse_cpu_unless_asked(tmp_path):
     with pytest.raises(FrameworkError):
         resolve_device()
     assert resolve_device("cpu").type == "cpu"
+
+
+def test_train_refuses_cpu_unless_asked():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; this checks the refusal "
+                    "on a machine without one")
+    from video_learning_tpu_torch import checkpoint
+    from video_learning_tpu_torch.flagship import flagship
+    from video_learning_tpu_torch.train import Train
+    from video_learning_tpu_torch.utils import FrameworkError
+
+    settings, model = flagship(num_classes=3, fpc=2)
+    with pytest.raises(FrameworkError, match="device='cpu'"):
+        Train(settings, settings.feeder, model)
+    eng = Train(settings, settings.feeder, model, device="cpu")
+    leaves = checkpoint.flatten_tree(eng.params).values()
+    assert all(p.device.type == "cpu" and p.requires_grad for p in leaves)

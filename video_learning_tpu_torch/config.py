@@ -1,8 +1,9 @@
 """Settings objects the pipelines DAG reads, without the YAML layer.
 
 Counterpart of the fields of ``video_learning_tpu/config.py`` that
-``models/pipeline.Model`` and the serving forward consume: per pipeline
-``Network``, the run-level ``Settings`` and ``ValOpts``.  Parsing a YAML
+``models/pipeline.Model``, the serving forward and the training engine
+(``train.py``) consume: per pipeline ``Network``, the run-level
+``Settings``, ``TrainOpts`` and ``ValOpts``.  Parsing a YAML
 ``run:`` document into these objects is not ported yet; callers build
 them directly (``flagship.py``) or from a serving artifact's model spec
 (``serving.py``).
@@ -35,8 +36,30 @@ class Network:
     frame_fusion = None
 
 
+class TrainOpts:
+    """Training options, with the JAX ``TrainOpts`` defaults.  lr_decay:
+    None or (strategy, scheme, freq, factor[, drop offset]); clip_grads:
+    None or (lo, hi), each gradient tensor's norm capped at
+    max(|lo|, |hi|)."""
+    batch_size = 100
+    epochs = 15
+    optimizer = defs.optim.sgd
+    base_lr = 0.001
+    lr_decay = None
+    lr_warmup = 0                   # linear-ramp batches (0 = off)
+    clip_norm = None
+    clip_grads = None
+    lr_mult = None                  # the 'modified' tier's lr factor
+    accum_steps = 1                 # micro-batches per optimizer step
+    ema_decay = 0.0                 # weight EMA factor (0 = off)
+    weight_decay = 0.0              # adamw decoupled decay (0 = off)
+    dropout_keep_prob = 0.5
+    batch_item = defs.batch_item.default
+
+
 class ValOpts:
     batch_size = 1
+    use_ema = False                 # evaluate the EMA weights
 
 
 class Settings:
@@ -50,12 +73,15 @@ class Settings:
         self.print_tensors = False
         self.feeder = None
         self.phase = defs.phase.val
-        self.dropout_keep_prob = 0.5
+        self.train = None
         self.val = None
+        self.global_step = 0
+        self.run_id = ""
+        self.run_folder = None      # where the lr schedule file goes
 
     def get_dropout(self):
         if self.phase == defs.phase.train:
-            return self.dropout_keep_prob
+            return self.train.dropout_keep_prob
         return 0.0
 
 
@@ -100,8 +126,13 @@ class GeometryDataset:
 
 class GeometryFeeder:
 
-    def __init__(self, datasets):
+    def __init__(self, datasets, num_batches=1):
         self.datasets = list(datasets)
+        self.num_batches = int(num_batches)
+
+    def get_num_batches(self):
+        """Batches per epoch: the length of the lr schedule's epoch."""
+        return self.num_batches
 
     def get_dataset_by_tag(self, tag):
         return [d for d in self.datasets if d.tag == tag]

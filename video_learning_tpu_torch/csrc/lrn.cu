@@ -31,27 +31,18 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "dtype.cuh"
+
 namespace {
+
+using vlt::from_f32;
+using vlt::to_f32;
 
 constexpr int kWarps = 8;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kRowsPerWarp = 4;
 constexpr int kUnroll = 8;
 constexpr int kSmemBudget = 48 * 1024;
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float v);
-template <>
-__device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
 
 // R > 0: the window radius fixed at compile time; R == 0: `radius`.
 template <typename T, int R>

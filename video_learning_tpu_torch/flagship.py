@@ -7,13 +7,16 @@ described by its geometry, with the same defaults (67x67 frames, fpc 4,
 16 classes, 2x256 LSTM, bf16).  The full-width serving configuration is
 ``flagship(num_classes=101, fpc=16, image=227, raw_hw=(240, 320),
 mean_scalars=SERVING_MEAN, imgproc=SERVING_IMGPROC)``.  The training
-options of the JAX `_flagship` (optimizer, learning rate, clipping) wait for
-the training slice.
+options are the JAX `_flagship`'s (SGD at lr 0.001, lr_mult 2, global-norm
+clip 5, 8 batches per epoch); the full-width training step of the JAX
+``bench.py`` is ``flagship(num_classes=101, fpc=16, image=227,
+raw_hw=(240, 320), mean_scalars=SERVING_MEAN, device_preprocess=True,
+batch_size=128, lr_mult=None, clip_norm=10.0, num_batches=1000)``.
 """
 
 from video_learning_tpu_torch.config import (GeometryDataset,
                                              GeometryFeeder, Network,
-                                             Settings, ValOpts)
+                                             Settings, TrainOpts, ValOpts)
 from video_learning_tpu_torch.defs import defs
 from video_learning_tpu_torch.models.pipeline import Model
 
@@ -27,10 +30,13 @@ TRAIN_IMGPROC = (defs.imgproc.rand_crop, defs.imgproc.sub_mean,
 
 def flagship(num_classes=16, fpc=4, image=67, lstm=(256, 2), raw_hw=None,
              mean_scalars=None, device_preprocess=False, batch_size=2,
-             compute_dtype="bfloat16", imgproc=None):
+             compute_dtype="bfloat16", imgproc=None, num_batches=8,
+             base_lr=0.001, lr_mult=2.0, clip_norm=5.0, optimizer="sgd"):
     """(settings, Model) of the flagship DAG.  ``device_preprocess`` (or
     an explicit ``imgproc`` chain) makes the frames input raw uint8 frames
-    of ``raw_hw`` that the device crops, mean-subtracts and mirrors."""
+    of ``raw_hw`` that the device crops, mean-subtracts and mirrors.
+    ``settings.train`` holds the training options (one epoch of
+    ``num_batches`` batches of ``batch_size`` clips)."""
     if imgproc is None and device_preprocess:
         imgproc = TRAIN_IMGPROC
     dataset = GeometryDataset(
@@ -56,7 +62,15 @@ def flagship(num_classes=16, fpc=4, image=67, lstm=(256, 2), raw_hw=None,
     s.num_classes = num_classes
     s.pipelines = {"frames": frames, "clf": clf}
     s.pipeline_names = ["frames", "clf"]
-    s.feeder = GeometryFeeder([dataset])
+    s.feeder = GeometryFeeder([dataset], num_batches=num_batches)
+    s.train = TrainOpts()
+    s.train.batch_size = batch_size
+    s.train.epochs = 1
+    s.train.optimizer = getattr(defs.optim, optimizer)
+    s.train.base_lr = base_lr
+    s.train.lr_mult = lr_mult
+    s.train.clip_norm = clip_norm
+    s.phase = defs.phase.train
     s.compute_dtype = compute_dtype
     s.val = ValOpts()
     s.val.batch_size = batch_size

@@ -12,18 +12,24 @@ conv2 5x5x256 g2 -> LRN -> pool -> conv3 3x3x384 -> conv4 3x3x384 g2 ->
 conv5 3x3x256 g2 -> pool -> fc6 9216->4096 -> fc7 4096 -> fc8.
 
 pool5 is flattened in NHWC (H, W, C) order, as the JAX package does, so
-fc6's rows line up with its checkpoints.  Not ported yet: the int8
-serving forward, the space-to-depth and conv1 weight-gradient variants,
+fc6's rows line up with its checkpoints.
+
+conv1 runs through ``Conv1Function``, the counterpart of
+``alexnet._conv1_direct`` (``alexnet.py:208-253``): cuDNN forward, and a
+backward whose weight gradient is a hand kernel (``ops/conv1_dw.py``).
+Not ported yet: the int8 serving forward, the space-to-depth forward
 and the pretrained bvlc ``.npy`` loader.
 """
 
 import math
 
+import torch
 import torch.nn.functional as F
 
 from video_learning_tpu_torch.models.layers import (
-    conv_apply, conv_init, fc_apply, fc_init, flat_dim,
-    local_response_normalization, max_pool)
+    conv_apply, conv_init, fc_apply, fc_init, flat_dim, hwio_to_oihw,
+    local_response_normalization, max_pool, same_pads)
+from video_learning_tpu_torch.ops import conv1_dw as conv1_dw_ops
 from video_learning_tpu_torch.utils import error
 
 # (kernel_h, kernel_w, in_ch, out_ch, stride, groups)
@@ -72,11 +78,56 @@ def param_groups(params, prefix=""):
     return regular, modified
 
 
-def apply(params, x, final_layer="prob", compute_dtype=None):
+CONV1_DW = {"shifted": conv1_dw_ops.conv1_dw_shifted,
+            "blocked": conv1_dw_ops.conv1_dw}
+
+
+class Conv1Function(torch.autograd.Function):
+    """relu(conv(x, w, stride 4, SAME) + b) for the stem conv, NHWC in
+    and out, w OIHW, with the backward of ``alexnet._conv1_direct``:
+    the output gradient masked by the relu, ``db`` summed in float32 and
+    cast to b's dtype, ``dW`` from the conv1 weight-gradient kernel
+    (``dw_impl``: "shifted" or "blocked") cast to w's dtype, and ``dx``
+    only when the frames need a gradient (never in training), as the
+    exact input gradient of the conv."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, dw_impl):
+        out = conv_apply({"w": w, "b": b}, x, (4, 4), "SAME", relu=True)
+        ctx.save_for_backward(x, w, out)
+        ctx.dw_impl = dw_impl
+        ctx.b_dtype = b.dtype
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, out = ctx.saved_tensors
+        g = g * (out > 0).to(g.dtype)
+        db = g.to(torch.float32).sum((0, 1, 2)).to(ctx.b_dtype)
+        dw = hwio_to_oihw(CONV1_DW[ctx.dw_impl](x, g)).to(w.dtype)
+        dx = None
+        if ctx.needs_input_grad[0]:
+            (top, bottom), (left, right) = (same_pads(x.shape[1], 11, 4),
+                                            same_pads(x.shape[2], 11, 4))
+            n, h, wd, c = x.shape
+            dx = torch.nn.grad.conv2d_input(
+                (n, c, h + top + bottom, wd + left + right), w,
+                g.permute(0, 3, 1, 2), stride=4)
+            dx = dx[:, :, top:top + h, left:left + wd].permute(0, 2, 3, 1)
+        return dx, dw, db, None
+
+
+def apply(params, x, final_layer="prob", compute_dtype=None,
+          conv1_dw="shifted"):
     """Forward pass.  x: (N, H, W, 3) (BGR, preprocessed).  Returns the
-    float32 encoding at ``final_layer`` (fc6/fc7) or the fc8 logits."""
+    float32 encoding at ``final_layer`` (fc6/fc7) or the fc8 logits.
+    ``conv1_dw`` picks conv1's weight-gradient kernel, "shifted" (the
+    formulation the JAX model reaches) or "blocked"."""
     if final_layer is None:
         final_layer = "prob"
+    if conv1_dw not in CONV1_DW:
+        error("conv1_dw must be one of %s, got %r"
+              % (sorted(CONV1_DW), conv1_dw))
 
     def conv(name, inp):
         _, _, _, _, stride, groups = _CONV_SPECS[name]
@@ -84,7 +135,11 @@ def apply(params, x, final_layer="prob", compute_dtype=None):
                           groups=groups, relu=True,
                           compute_dtype=compute_dtype)
 
-    x = conv("conv1", x)
+    w1, b1 = params["conv1"]["w"], params["conv1"]["b"]
+    if compute_dtype is not None:
+        x = x.to(compute_dtype)
+        w1 = w1.to(compute_dtype)
+    x = Conv1Function.apply(x, w1, b1, conv1_dw)
     x = local_response_normalization(x)
     x = max_pool(x, (3, 3), (2, 2), "VALID")
     x = conv("conv2", x)

@@ -19,7 +19,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from video_learning_tpu_torch.ops.lrn import lrn
+from video_learning_tpu_torch.ops.lrn import LRNFunction
 from video_learning_tpu_torch.utils import error
 
 
@@ -139,8 +139,10 @@ def local_response_normalization(x, depth_radius=2, bias=1.0, alpha=2e-5,
                                  beta=0.75):
     """AlexNet LRN over the channels of an NHWC tensor:
     out = x / (bias + alpha * sum_{d-r..d+r} x_d^2) ** beta.  The CUDA
-    kernel on the GPU, its plain version on the CPU (ops/lrn.py)."""
-    return lrn(x.contiguous(), depth_radius, bias, alpha, beta)
+    kernels on the GPU, their plain versions on the CPU, forward and
+    backward (ops/lrn.py ``LRNFunction``)."""
+    return LRNFunction.apply(x.contiguous(), depth_radius, bias, alpha,
+                             beta)
 
 
 # ----------------------------------------------------------------- dropout

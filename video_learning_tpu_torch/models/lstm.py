@@ -9,7 +9,8 @@ weight layout differ).
 The input projection x @ Wx for all timesteps is hoisted out of the
 recurrence into one matrix product; the recurrence is a Python loop over
 T whose step is the ``lstm_step`` CUDA kernel for CUDA tensors (its
-plain version on the CPU).  Length masks freeze the state and zero the
+plain version on the CPU), through ``LSTMStepFunction`` so that training
+differentiates it.  Length masks freeze the state and zero the
 outputs past each sequence's length (``dynamic_rnn`` semantics), in plain
 torch around the step.  Caption decoding (greedy / beam) is not ported
 yet.
@@ -18,7 +19,7 @@ yet.
 import torch
 
 from video_learning_tpu_torch.models.layers import truncated_normal
-from video_learning_tpu_torch.ops.lstm_step import lstm_step
+from video_learning_tpu_torch.ops.lstm_step import LSTMStepFunction
 
 
 def init(generator, input_dim, num_hidden, num_layers, device="cpu"):
@@ -92,7 +93,7 @@ def evaluate_sequence(params, x, num_hidden, sequence_len, lengths=None,
         c, h = (s.to(torch.float32).contiguous() for s in states[l])
         outs = []
         for t in range(sequence_len):
-            new_h, new_c = lstm_step(xproj_t[t], h, c, wh, b)
+            new_h, new_c = LSTMStepFunction.apply(xproj_t[t], h, c, wh, b)
             if mask_t is not None:
                 m = mask_t[t]
                 new_h = torch.where(m > 0, new_h, h)

@@ -31,8 +31,8 @@ from video_learning_tpu_torch.models.layers import (convert_dim_fc_apply,
                                                     convert_dim_fc_init,
                                                     dropout)
 from video_learning_tpu_torch.ops import fusion
-from video_learning_tpu_torch.utils import (debug, error, resolve_device,
-                                            warning)
+from video_learning_tpu_torch.utils import (debug, error, fold_in,
+                                            resolve_device, warning)
 
 
 class _InputSource:
@@ -233,24 +233,33 @@ class Model:
         return self._groups["regular"], self._groups["modified"]
 
     # --------------------------------------------------------------- apply
-    def apply(self, params, feed, train=False, dropout_generator=None):
+    def apply(self, params, feed, train=False, dropout_generator=None,
+              conv1_dw="shifted"):
         """Run the full DAG.  feed: {input_key: tensor or array}; arrays
         move to the parameters' device.  Returns (num_items, num_classes)
-        float32 logits."""
+        float32 logits.  ``dropout_generator`` (a ``torch.Generator``)
+        seeds training dropout: pipeline i draws from a generator seeded
+        with ``fold_in(its seed, i)``, so two same-shaped dropout sites in
+        different pipelines never share a mask (JAX ``fold_in(rng, i)``).
+        ``conv1_dw`` picks the stem conv's weight-gradient kernel."""
         device = _tree_device(params)
         feed = {k: (v if isinstance(v, torch.Tensor)
                     else torch.as_tensor(np.asarray(v))).to(device)
                 for k, v in feed.items()}
         outputs = {}
         logits = None
-        for spec in self.specs:
+        for i, spec in enumerate(self.specs):
+            gen_i = None
+            if dropout_generator is not None:
+                gen_i = torch.Generator().manual_seed(
+                    fold_in(dropout_generator.initial_seed(), i))
             logits = self._apply_pipeline(params[spec["name"]], spec, feed,
-                                          outputs, train, dropout_generator)
+                                          outputs, train, gen_i, conv1_dw)
             outputs[spec["name"]] = logits
         return logits
 
     def _apply_pipeline(self, p, spec, feed, outputs, train,
-                        dropout_generator):
+                        dropout_generator, conv1_dw):
         net, name = spec["net"], spec["name"]
         inputs, dims, fpcs, cpvs = [], [], [], []
         for src in spec["sources"]:
@@ -276,7 +285,7 @@ class Model:
                                       else (None, None))
         vec = spec["vectorizer"]
         x = vec.apply(p.get(vec.param_key), x,
-                      compute_dtype=self.compute_dtype)
+                      compute_dtype=self.compute_dtype, conv1_dw=conv1_dw)
         dim = int(x.shape[-1])
         if self.settings.print_tensors:
             debug("Vectorized output [%s] shape=%s" % (name, tuple(x.shape)))

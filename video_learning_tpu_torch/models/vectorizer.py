@@ -8,7 +8,9 @@ the int8 paths.  Contract with the pipeline DAG (models/pipeline.py):
 * ``init(generator, shape, device)`` - build the parameter tree; fills
                          ``train_regular`` / ``train_modified`` with
                          relative parameter paths ("" = the whole tree),
-* ``apply(params, x, compute_dtype)`` - run it.
+* ``apply(params, x, compute_dtype, conv1_dw)`` - run it;
+                         ``conv1_dw`` picks the stem conv's
+                         weight-gradient kernel and only the DCNN reads it.
 """
 
 from video_learning_tpu_torch.defs import defs
@@ -44,14 +46,14 @@ class Vectorizer:
         ``in_dim``."""
         return in_dim
 
-    def apply(self, params, x, compute_dtype=None):
+    def apply(self, params, x, compute_dtype=None, conv1_dw="shifted"):
         raise NotImplementedError
 
 
 class NOP(Vectorizer):
     name = "nop"
 
-    def apply(self, params, x, compute_dtype=None):
+    def apply(self, params, x, compute_dtype=None, conv1_dw="shifted"):
         return x
 
 
@@ -82,10 +84,10 @@ class DCNN(Vectorizer):
         return alexnet.output_dim(self.frame_encoding_layer,
                                   self.num_classes)
 
-    def apply(self, params, x, compute_dtype=None):
+    def apply(self, params, x, compute_dtype=None, conv1_dw="shifted"):
         self.require_input(x.shape, 3)
         return alexnet.apply(params, x, self.frame_encoding_layer,
-                             compute_dtype=compute_dtype)
+                             compute_dtype=compute_dtype, conv1_dw=conv1_dw)
 
 
 class FC(Vectorizer):
@@ -104,7 +106,7 @@ class FC(Vectorizer):
     def output_dim(self, in_dim):
         return self.fc_output_dim
 
-    def apply(self, params, x, compute_dtype=None):
+    def apply(self, params, x, compute_dtype=None, conv1_dw="shifted"):
         self.require_input(x.shape, 2)
         return convert_dim_fc_apply(params, x, compute_dtype)
 

@@ -116,6 +116,13 @@ def library():
             lib.vlt_lstm_step.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptr,
                                           i32, i32, ptr]
             lib.vlt_lstm_step.restype = i32
+            lib.vlt_lrn_bwd.argtypes = [ptr, ptr, ptr, i64, i32, i32, i32,
+                                        f32, f32, f32, f32, ptr]
+            lib.vlt_lrn_bwd.restype = i32
+            for fn in (lib.vlt_conv1_dw, lib.vlt_conv1_dw_shifted):
+                fn.argtypes = [ptr, ptr, ptr, ptr, i64, i32, i32, i32, i64,
+                               i32, ptr]
+                fn.restype = i32
             lib.vlt_error_string.argtypes = [i32]
             lib.vlt_error_string.restype = ctypes.c_char_p
             _lib = lib

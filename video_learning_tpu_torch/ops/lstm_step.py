@@ -6,6 +6,11 @@ version.
 the plain ``lstm_step_reference`` on CPU tensors; on any other device,
 or tensors the kernel does not take, it raises.  ``lstm_step.launches``
 counts kernel launches.
+
+The kernel's outputs have no ``grad_fn``, so a differentiable caller goes
+through ``LSTMStepFunction``; ``lstm_step`` raises rather than hand back
+detached results for CUDA operands that require a gradient while grad
+mode is on.
 """
 
 import torch
@@ -35,6 +40,9 @@ def lstm_step(xproj, h, c, wh, b):
            for t in args):
         error("lstm_step: all operands must be on one CUDA device, got %s"
               % [str(t.device) for t in args])
+    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+        error("lstm_step: the kernel's outputs have no gradient; call "
+              "LSTMStepFunction.apply for operands that require one")
     batch, hidden = h.shape if h.dim() == 2 else (-1, -1)
     want = {"xproj": (batch, 4 * hidden), "h": (batch, hidden),
             "c": (batch, hidden), "wh": (hidden, 4 * hidden),
@@ -56,3 +64,34 @@ def lstm_step(xproj, h, c, wh, b):
 
 
 lstm_step.launches = 0
+
+
+class LSTMStepFunction(torch.autograd.Function):
+    """One cell step with its gradient: the forward is ``lstm_step`` (the
+    kernel on the card, the plain version on the CPU).  The JAX package
+    has no backward kernel for this step (its Pallas ``lstm_step`` has no
+    VJP, and its model differentiates the scan body through XLA), so the
+    backward is plain torch: it recomputes
+    ``gates = xproj + h @ Wh + b`` from the saved inputs and returns the
+    gradients for xproj, h, c, Wh and b."""
+
+    @staticmethod
+    def forward(ctx, xproj, h, c, wh, b):
+        ctx.save_for_backward(xproj, h, c, wh, b)
+        return lstm_step(xproj, h, c, wh, b)
+
+    @staticmethod
+    def backward(ctx, d_h, d_c):
+        xproj, h, c, wh, b = ctx.saved_tensors
+        gates = xproj + torch.matmul(h, wh) + b
+        i, j, f, o = torch.chunk(gates, 4, dim=-1)
+        si, tj = torch.sigmoid(i), torch.tanh(j)
+        sf, so = torch.sigmoid(f + 1.0), torch.sigmoid(o)
+        tc = torch.tanh(c * sf + si * tj)
+        d_new_c = d_c + d_h * so * (1.0 - tc * tc)
+        d_gates = torch.cat([d_new_c * tj * si * (1.0 - si),
+                             d_new_c * si * (1.0 - tj * tj),
+                             d_new_c * c * sf * (1.0 - sf),
+                             d_h * tc * so * (1.0 - so)], dim=-1)
+        return (d_gates, torch.matmul(d_gates, wh.t()), d_new_c * sf,
+                torch.matmul(h.t(), d_gates), d_gates.sum(0))

@@ -56,6 +56,17 @@ def ensure_console_logging(level=logging.INFO):
         logger.setLevel(level)
 
 
+def fold_in(seed, data):
+    """A new 63-bit seed derived from ``seed`` and the integer ``data``:
+    the port's counterpart of ``jax.random.fold_in`` for torch generator
+    seeds (distinct streams per step, micro-batch or pipeline; not JAX's
+    bits)."""
+    import numpy as np
+    state = np.random.SeedSequence([int(seed), int(data)]).generate_state(
+        1, np.uint64)
+    return int(state[0] >> np.uint64(1))
+
+
 def resolve_device(device="cuda"):
     """The torch.device an entry point runs on.  The port's entry points
     default to the GPU; asking for CUDA where there is none raises rather
