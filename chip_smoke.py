@@ -8,8 +8,9 @@ Phases (each raises on failure; nothing is caught and passed over):
 1. the card's name and power limit; build the CUDA kernels from
    ``video_learning_tpu_torch/csrc`` with nvcc for sm_90a;
 2. each kernel against its plain PyTorch version on the card, at the
-   shapes the serving path gives it, with times beside the bound and
-   the one-call library equivalent where there is one;
+   shapes the serving and training paths give it (and smaller ones),
+   with times beside the bound and the one-call library equivalent
+   where there is one;
 3. the full-width flagship serving forward (227x227, fpc 16, 2x256 LSTM,
    101 classes, bf16, random weights from a fixed seed): the launch
    counters must rise by exactly 2 (LRN) and 32 (lstm_step) in one
@@ -268,10 +269,12 @@ def lrn_bwd_case(n, h, w, c, dtype, gen, radius=2):
     return case
 
 
-def conv1_dw_case(fn, n, dtype, gen, check=True):
+def conv1_dw_case(fn, n, dtype, gen, graph_plain=True):
     """One conv1 weight-gradient kernel at the training geometry (227x227
-    frames, a 57x57x96 gradient).  ``check``: compare with the plain
-    version (and time it); without, the plain version is timed once."""
+    frames, a 57x57x96 gradient), against its plain version.
+    ``graph_plain``: time the plain version from a CUDA graph; without,
+    eagerly (at 2048 frames a graph of its tap-sized temporaries would
+    hold tens of GB)."""
     x = torch.randn((n, IMAGE, IMAGE, 3), generator=gen,
                     device="cuda").to(dtype)
     oh = -(-IMAGE // 4)
@@ -279,27 +282,26 @@ def conv1_dw_case(fn, n, dtype, gen, check=True):
     plain = (conv1_mod.conv1_dw_reference if fn is conv1_mod.conv1_dw
              else conv1_mod.conv1_dw_shifted_reference)
     out = fn(x, g)
+    ref = plain(x, g)
     torch.cuda.synchronize()
     case = {"shape": [n, IMAGE, IMAGE, 3], "dtype":
             str(dtype).replace("torch.", "")}
-    if check:
-        ref = plain(x, g)
-        torch.cuda.synchronize()
-        # float32 sums in another order (bf16 products are exact in f32)
-        atol = 1e-5 * float(ref.abs().max())
-        abs_err, rel_err = errors(out, ref)
-        if not torch.allclose(out, ref, rtol=1e-5, atol=atol):
-            raise AssertionError(
-                "%s %s %s: kernel disagrees with plain (max abs %.3g; rtol "
-                "1e-5 atol %.3g)" % (fn.__name__, case["shape"], dtype,
-                                     abs_err, atol))
-        if not torch.equal(fn(x, g), out):
-            raise AssertionError("%s: two runs differ" % fn.__name__)
-        case.update(max_abs_err=abs_err, max_rel_err=rel_err, rtol=1e-5,
-                    atol=atol, plain_ms=cuda_ms(lambda: plain(x, g),
-                                                iters=2, reps=2))
-    else:
-        case["plain_ms"] = eager_ms(lambda: plain(x, g), iters=2)
+    # float32 sums in another order (bf16 products are exact in f32)
+    atol = 1e-5 * float(ref.abs().max())
+    abs_err, rel_err = errors(out, ref)
+    if not torch.allclose(out, ref, rtol=1e-5, atol=atol):
+        raise AssertionError(
+            "%s %s %s: kernel disagrees with plain (max abs %.3g; rtol "
+            "1e-5 atol %.3g)" % (fn.__name__, case["shape"], dtype,
+                                 abs_err, atol))
+    if not torch.equal(fn(x, g), out):
+        raise AssertionError("%s: two runs differ" % fn.__name__)
+    del ref
+    case.update(max_abs_err=abs_err, max_rel_err=rel_err, rtol=1e-5,
+                atol=atol, plain_ms=(
+                    cuda_ms(lambda: plain(x, g), iters=2, reps=2)
+                    if graph_plain else eager_ms(lambda: plain(x, g),
+                                                 iters=2)))
     xn, gn = x.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)
 
     def library():
@@ -317,10 +319,10 @@ def conv1_dw_case(fn, n, dtype, gen, check=True):
                 helpers_ms=cuda_ms(
                     lambda: conv1_mod.conv1_s2d_geometry(x, oh, oh)
                     .contiguous(), iters=3, reps=3))
-    log("  %-16s %-18s %-8s %s| kernel %.3f ms (torch s2d rearrangement "
-        "alone %.3f ms) plain %.3f ms library %.3f ms bound %.3f ms (%s)"
-        % (fn.__name__, tuple(case["shape"]), case["dtype"],
-           "max_abs %.3g " % case["max_abs_err"] if check else "",
+    log("  %-16s %-18s %-8s max_abs %.3g | kernel %.3f ms (torch s2d "
+        "rearrangement alone %.3f ms) plain %.3f ms library %.3f ms bound "
+        "%.3f ms (%s)"
+        % (fn.__name__, tuple(case["shape"]), case["dtype"], abs_err,
            case["ms"], case["helpers_ms"], case["plain_ms"],
            case["library_ms"], bnd, by))
     return case
@@ -341,6 +343,9 @@ def phase_kernels(clips):
                   lrn_case(8 * FPC, 5, 5, 40, torch.bfloat16, gen, radius=3)]
     lrn_main = [lrn_case(n_frames, *site, torch.bfloat16, gen)
                 for site in LRN_SITES]
+    # the training step's forward sites (not this line's main path)
+    lrn_cases += [lrn_case(train_frames, *site, torch.bfloat16, gen)
+                  for site in LRN_SITES]
     lstm_cases = [lstm_case(b, gen) for b in (1, 8, 128)]
     lstm_main = lstm_case(clips, gen)
     bwd_cases = [lrn_bwd_case(8 * FPC, *site, dtype, gen)
@@ -356,7 +361,7 @@ def phase_kernels(clips):
         cases = [conv1_dw_case(fn, 256, dtype, gen)
                  for dtype in (torch.bfloat16, torch.float32)]
         main = conv1_dw_case(fn, train_frames, torch.bfloat16, gen,
-                             check=False)
+                             graph_plain=False)
         dw[fn.__name__] = (cases + [main], [main])
     return {"lrn": (lrn_cases + lrn_main, lrn_main),
             "lstm_step": (lstm_cases + [lstm_main], [lstm_main] *
@@ -815,8 +820,7 @@ def kernel_entry(name, source, replaces, launches, cases, main_cases):
     return {
         "name": name, "route": "cuda", "source": source,
         "replaces": replaces, "launches": launches,
-        "max_abs_err": max(c["max_abs_err"] for c in cases
-                           if "max_abs_err" in c),
+        "max_abs_err": max(c["max_abs_err"] for c in cases),
         "ms": sum(c["ms"] for c in main_cases),
         "plain_ms": sum(c["plain_ms"] for c in main_cases),
         "bound_ms": sum(c["bound_ms"] for c in main_cases),

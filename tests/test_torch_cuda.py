@@ -96,11 +96,12 @@ def test_lrn_backward_kernel_matches_plain(gen, channels, radius):
     assert lrn_mod.lrn_backward.launches == before + 2
 
 
-# (39, 43) and (45, 37) as in the CPU tests; (40, 42) pads asymmetrically
+# (39, 43) and (45, 37) as in the CPU tests; (40, 42) pads asymmetrically;
+# (20, 21) has fewer positions per image than a staged tile holds
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(3, 39, 43, 3), (2, 45, 37, 3),
-                                   (5, 40, 42, 3)])
+                                   (5, 40, 42, 3), (6, 20, 21, 3)])
 def test_conv1_dw_kernels_match_plain(gen, shape, dtype):
     from video_learning_tpu_torch.ops import conv1_dw as c1
     prev = torch.backends.cuda.matmul.allow_tf32
@@ -113,14 +114,17 @@ def test_conv1_dw_kernels_match_plain(gen, shape, dtype):
         before = (c1.conv1_dw.launches, c1.conv1_dw_shifted.launches)
         # float32 sums in another order; bf16 products are exact in f32
         tol = dict(rtol=1e-5, atol=1e-5 * float(ref.abs().max()))
+        # row ranges that cross images, and ones that start mid-row and
+        # hold less than a tile
         for out in (c1.conv1_dw(x, gout), c1.conv1_dw(x, gout,
                                                        block_images=1),
                     c1.conv1_dw_shifted(x, gout),
-                    c1.conv1_dw_shifted(x, gout, block_rows=200)):
+                    c1.conv1_dw_shifted(x, gout, block_rows=200),
+                    c1.conv1_dw_shifted(x, gout, block_rows=97)):
             assert out.dtype == torch.float32 and out.shape == ref.shape
             torch.testing.assert_close(out, ref, **tol)
         assert (c1.conv1_dw.launches, c1.conv1_dw_shifted.launches) == \
-            (before[0] + 2, before[1] + 2)
+            (before[0] + 2, before[1] + 3)
         # fixed-order reduction, no atomics: the same bits every run
         assert torch.equal(c1.conv1_dw_shifted(x, gout),
                            c1.conv1_dw_shifted(x, gout))

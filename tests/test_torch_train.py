@@ -245,7 +245,12 @@ def test_bf16_step_is_finite_and_close_to_jax():
     terms, so in bf16 rounding noise dominates it in both frameworks
     (each gradient norm lands 35-45% above the float32 one): the norms
     agree to 50%, and every parameter stays finite and within two SGD
-    steps of the JAX one."""
+    steps of the JAX one.  Every parameter moves, and its update points
+    the way JAX's does: two estimates of one gradient that rounding noise
+    dominates agree only in part, while a dropped or scrambled gradient
+    sits near cosine 0, so the cosine between the two updates is held to
+    >= 0.6 per tensor, and to >= 0.99 for the head (output FC, top LSTM
+    layer), whose gradient stands well above the noise."""
     jeng, teng, start = _engines(SGD, {}, compute_dtype="bfloat16")
     feed = _feeds("bf16", seed=5)[0]
     ref = jeng.run_step(dict(feed))
@@ -261,6 +266,12 @@ def test_bf16_step_is_finite_and_close_to_jax():
         moved = float(np.abs(jref[k] - start[k]).max())
         assert float(np.abs(port[k] - jref[k]).max()) <= \
             2.0 * moved + 1e-6 * float(np.abs(jref[k]).max()), k
+        up = (port[k] - start[k]).astype(np.float64).ravel()
+        ref_up = (jref[k] - start[k]).astype(np.float64).ravel()
+        assert np.abs(up).max() > 0, k
+        cos = up @ ref_up / (np.linalg.norm(up) * np.linalg.norm(ref_up))
+        head = k.startswith(("clf/output_fc/", "clf/lstm/cells/1/"))
+        assert cos >= (0.99 if head else 0.6), (k, cos)
 
 
 def test_state_dict_round_trip_and_ema_eval_params():

@@ -24,13 +24,17 @@
 // tensor cores (ldmatrix, mma.sync); float32 runs on the CUDA cores, for
 // the float32 checks only.
 //
-// Design.  A block owns a range of positions (conv1_dw: whole images;
-// conv1_dw_shifted: a range of flattened rows of the zero-padded G) and
-// walks it in tiles of kTile positions.  Per tile it stages the G rows and
-// the X rows [r0, r0 + kTile + 2*(OW+2) + 2) in shared memory: in memory a
-// shifted tap is an offset into that window, so the side array of row
-// heads the TPU kernel gathered is not needed.  Two stages: cp.async copies
-// the next tile while the current one is multiplied.  G rows are padded by
+// Design.  Both entry points take the same operands, X and the unpadded
+// G (N, OH, OW, 96), and differ only in how positions are split across
+// blocks: conv1_dw gives each block whole images, conv1_dw_shifted a range
+// of flattened rows.  A block walks its range in tiles of kTile positions.
+// Per tile it stages the G rows of its positions (zero on the two pad rows
+// and columns of each image, by bounds tests, so G is never copied into
+// a padded buffer) and the X rows [r0, r0 + kTile + 2*(OW+2) + 2) in
+// shared memory: in memory a shifted tap is an offset into that window, so
+// the side array of row heads the TPU kernel gathered is not needed.  Two
+// stages: cp.async copies the next tile while the current one is
+// multiplied.  G rows are padded by
 // 16 bytes in shared memory, so the eight rows one ldmatrix reads fall in
 // different banks (unpadded, 192-byte rows put four of them on the same
 // banks, and the B loads ran at a quarter of the shared-memory rate).
@@ -42,8 +46,9 @@
 // across the whole range; per 16 positions it loads its A fragment (X rows
 // at its tap's offset, transposed by ldmatrix) once and multiplies it by
 // the twelve B fragments of G.  float32: each thread owns one output row
-// and half of its columns.  The TPU kept one (432, 96) accumulator resident across a
-// grid that runs in order; blocks here run in no order, so each block
+// and half of its columns.  The TPU kept one (432, 96) accumulator
+// resident across a grid that runs in order; blocks here run in no order,
+// so each block
 // writes its own (432, 96) float32 partial, and a second kernel adds the
 // partials in block order.  No atomics: two runs give the same bits.
 #include <cuda_bf16.h>
@@ -101,13 +106,13 @@ __host__ __device__ __forceinline__ int stage_elems(int w2) {
 }
 
 // Positions [begin, end) of this block: per_block images (conv1_dw) or
-// per_block flattened rows (conv1_dw_shifted, kPadded).
-template <bool kPadded>
+// per_block flattened rows (conv1_dw_shifted, kByRows).
+template <bool kByRows>
 __device__ __forceinline__ void block_range(const Geometry& geo,
                                             long long per_block,
                                             long long* begin,
                                             long long* end) {
-  const long long units = kPadded ? per_block : per_block * geo.s;
+  const long long units = kByRows ? per_block : per_block * geo.s;
   *begin = static_cast<long long>(blockIdx.x) * units;
   *end = min(*begin + units, geo.k);
 }
@@ -131,10 +136,9 @@ __device__ __forceinline__ void cp_async_wait_all_but_one() {
 }
 
 // Start copying X rows [r0, r0 + window) (zero past the last row) and the
-// G rows of positions [r0, r0 + kTile) (zero at and past `end`; for the
-// unpadded G of conv1_dw also zero on the two pad rows and columns of each
-// image) into one stage.
-template <typename T, bool kPadded>
+// G rows of positions [r0, r0 + kTile) (zero at and past `end`, and on the
+// two pad rows and columns of each image) into one stage.
+template <typename T>
 __device__ __forceinline__ void stage_tile(T* stage,
                                            const T* __restrict__ x,
                                            const T* __restrict__ g,
@@ -154,21 +158,14 @@ __device__ __forceinline__ void stage_tile(T* stage,
     cp_async16(xs + row * x_stride<T>() + v * kVec,
                ok ? x + r * kCin + v * kVec : x, ok);
   }
-  long long n0 = 0;
-  int rem0 = 0;
-  if (!kPadded) {                    // image and offset of the tile's start
-    n0 = r0 / geo.s;
-    rem0 = static_cast<int>(r0 - n0 * geo.s);
-  }
+  const long long n0 = r0 / geo.s;   // image and offset of the tile's start
+  const int rem0 = static_cast<int>(r0 - n0 * geo.s);
   for (int i = threadIdx.x; i < kTile * kGVecs; i += kThreads) {
     const int row = i / kGVecs;
     const int v = i - row * kGVecs;
-    const long long r = r0 + row;
-    bool ok = r < end;
+    bool ok = r0 + row < end;
     const T* src = g;
-    if (ok && kPadded) {
-      src = g + r * kCout + v * kVec;
-    } else if (ok) {
+    if (ok) {
       long long n = n0;
       int rem = rem0 + row;
       while (rem >= geo.s) {         // at most once when s > kTile
@@ -187,22 +184,21 @@ __device__ __forceinline__ void stage_tile(T* stage,
 // Walk the block's positions in tiles, two stages deep: the copies of
 // tile t + 1 run while tile t is multiplied.  compute(xs, gs) reads one
 // staged tile.
-template <typename T, bool kPadded, typename Compute>
+template <typename T, bool kByRows, typename Compute>
 __device__ __forceinline__ void pipeline(T* smem, const T* __restrict__ x,
                                          const T* __restrict__ g,
                                          const Geometry& geo,
                                          long long per_block,
                                          Compute compute) {
   long long begin, end;
-  block_range<kPadded>(geo, per_block, &begin, &end);
+  block_range<kByRows>(geo, per_block, &begin, &end);
   const int stage = stage_elems<T>(geo.w2);
-  if (begin < end) stage_tile<T, kPadded>(smem, x, g, begin, end, geo);
+  if (begin < end) stage_tile<T>(smem, x, g, begin, end, geo);
   cp_async_commit();
   int s = 0;
   for (long long r0 = begin; r0 < end; r0 += kTile, s ^= 1) {
     if (r0 + kTile < end)
-      stage_tile<T, kPadded>(smem + (s ^ 1) * stage, x, g, r0 + kTile, end,
-                             geo);
+      stage_tile<T>(smem + (s ^ 1) * stage, x, g, r0 + kTile, end, geo);
     cp_async_commit();
     cp_async_wait_all_but_one();     // this thread's copies of tile r0
     __syncthreads();                 // everyone's
@@ -235,7 +231,7 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-template <bool kPadded>
+template <bool kByRows>
 __global__ void __launch_bounds__(kThreads, 1)
 conv1_dw_bf16(const __nv_bfloat16* __restrict__ x,
               const __nv_bfloat16* __restrict__ g, float* __restrict__ partial,
@@ -263,7 +259,7 @@ conv1_dw_bf16(const __nv_bfloat16* __restrict__ x,
   for (int t = 0; t < 2 * kFrags; ++t)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[t][e] = 0.f;
-  pipeline<__nv_bfloat16, kPadded>(
+  pipeline<__nv_bfloat16, kByRows>(
       reinterpret_cast<__nv_bfloat16*>(smem), x, g, geo, per_block,
       [&](const __nv_bfloat16* xs, const __nv_bfloat16* gs) {
         const unsigned xa = shared_addr(xs) + a_off;
@@ -293,7 +289,7 @@ conv1_dw_bf16(const __nv_bfloat16* __restrict__ x,
   }
 }
 
-template <bool kPadded>
+template <bool kByRows>
 __global__ void __launch_bounds__(kThreads, 1)
 conv1_dw_f32(const float* __restrict__ x, const float* __restrict__ g,
              float* __restrict__ partial, Geometry geo, long long per_block) {
@@ -308,7 +304,7 @@ conv1_dw_f32(const float* __restrict__ x, const float* __restrict__ g,
   float acc[kCols];
 #pragma unroll
   for (int j = 0; j < kCols; ++j) acc[j] = 0.f;
-  pipeline<float, kPadded>(
+  pipeline<float, kByRows>(
       reinterpret_cast<float*>(smem), x, g, geo, per_block,
       [&](const float* xs, const float* gs) {
         const float* xcol = xs + off * kCin + ch;
@@ -343,15 +339,15 @@ __global__ void reduce_partials(const float* __restrict__ partial,
   out[i] = s;
 }
 
-template <typename T, bool kPadded>
+template <typename T, bool kByRows>
 constexpr auto kernel_for() {
   if constexpr (std::is_same<T, float>::value)
-    return &conv1_dw_f32<kPadded>;
+    return &conv1_dw_f32<kByRows>;
   else
-    return &conv1_dw_bf16<kPadded>;
+    return &conv1_dw_bf16<kByRows>;
 }
 
-template <typename T, bool kPadded>
+template <typename T, bool kByRows>
 int launch(const void* x, const void* g, void* partial, void* out,
            long long n, int oh, int ow, long long per_block, int nblocks,
            cudaStream_t stream) {
@@ -361,11 +357,11 @@ int launch(const void* x, const void* g, void* partial, void* out,
   geo.w2 = ow + 2;
   geo.s = static_cast<long long>(oh + 2) * geo.w2;
   geo.k = n * geo.s;
-  const long long units = kPadded ? geo.k : n;
+  const long long units = kByRows ? geo.k : n;
   if (per_block <= 0 || nblocks <= 0 ||
       (units + per_block - 1) / per_block != nblocks)
     return static_cast<int>(cudaErrorInvalidValue);
-  const auto kernel = kernel_for<T, kPadded>();
+  const auto kernel = kernel_for<T, kByRows>();
   // two stages exceed the default 48 KB: opt in once to what the device
   // allows a block
   static int smem_limit = -1;
@@ -398,7 +394,7 @@ int launch(const void* x, const void* g, void* partial, void* out,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool kPadded>
+template <bool kByRows>
 int dispatch(const void* x, const void* g, void* partial, void* out,
              long long n, int oh, int ow, int dtype, long long per_block,
              int nblocks, void* stream) {
@@ -406,10 +402,10 @@ int dispatch(const void* x, const void* g, void* partial, void* out,
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch<float, kPadded>(x, g, partial, out, n, oh, ow, per_block,
+    return launch<float, kByRows>(x, g, partial, out, n, oh, ow, per_block,
                                   nblocks, s);
   if (dtype == 1)
-    return launch<__nv_bfloat16, kPadded>(x, g, partial, out, n, oh, ow,
+    return launch<__nv_bfloat16, kByRows>(x, g, partial, out, n, oh, ow,
                                           per_block, nblocks, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -429,15 +425,14 @@ extern "C" int vlt_conv1_dw(const void* xp, const void* g, void* partial,
                          images_per_block, nblocks, stream);
 }
 
-// xflat: contiguous (n*(oh+2)*(ow+2), 48) flattened space-to-depth frames;
-// gflat: contiguous (n*(oh+2)*(ow+2), 96), the gradient zero-padded to the
-// same grid; the same dtype codes.  Blocks own rows_per_block rows each;
-// nblocks = ceil(rows / rows_per_block).  partial and out as above.
-extern "C" int vlt_conv1_dw_shifted(const void* xflat, const void* gflat,
+// The same operands, read as n*(oh+2)*(ow+2) flattened rows of xp; blocks
+// own rows_per_block rows each; nblocks = ceil(rows / rows_per_block).
+// partial and out as above.
+extern "C" int vlt_conv1_dw_shifted(const void* xp, const void* g,
                                     void* partial, void* out, long long n,
                                     int oh, int ow, int dtype,
                                     long long rows_per_block, int nblocks,
                                     void* stream) {
-  return dispatch<true>(xflat, gflat, partial, out, n, oh, ow, dtype,
+  return dispatch<true>(xp, g, partial, out, n, oh, ow, dtype,
                         rows_per_block, nblocks, stream);
 }

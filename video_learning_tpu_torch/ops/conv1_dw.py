@@ -89,30 +89,20 @@ def conv1_dw_reference(x, gout):
     return conv1_dw_s2d_to_hwio(torch.cat(rows), c, cout)
 
 
-def _shift_operands(x, gout):
-    """The position-flattened operands of ``conv1_dw_shifted``: X as
-    (N*S, 16*C) and the output gradient zero-padded from (oh, ow) to the
-    same (oh+2, ow+2) grid, cast to x's dtype, as (N*S, cout)."""
+def conv1_dw_shifted_reference(x, gout):
+    """Plain version of ``conv1_dw_shifted``, the contractions of
+    ``_conv1_dw_shift_kernel`` over the whole batch: the frames and the
+    gradient (zero-padded to the same (oh+2, ow+2) grid, cast to x's
+    dtype) flattened to rows of positions; tap (ky, kx) pairs row r of
+    the gradient with row r + ky*(ow+2) + kx of the frames (zero past the
+    end).  Returns (11, 11, C, cout) float32."""
     n, _, _, c = x.shape
     oh, ow, cout = gout.shape[1], gout.shape[2], gout.shape[3]
-    k = n * (oh + TAPS - 1) * (ow + TAPS - 1)
+    w2 = ow + TAPS - 1
+    k = n * (oh + TAPS - 1) * w2
     xflat = conv1_s2d_geometry(x, oh, ow).reshape(k, BLOCK * BLOCK * c)
     gflat = F.pad(gout.to(x.dtype), (0, 0, 0, TAPS - 1, 0, TAPS - 1)) \
         .reshape(k, cout)
-    return xflat, gflat
-
-
-def conv1_dw_shifted_reference(x, gout):
-    """Plain version of ``conv1_dw_shifted``, the contractions of
-    ``_conv1_dw_shift_kernel`` over the whole batch: tap (ky, kx) pairs
-    row r of the flattened gradient with row r + ky*(ow+2) + kx of the
-    flattened frames (zero past the end).  Returns (11, 11, C, cout)
-    float32."""
-    c = x.shape[-1]
-    ow, cout = gout.shape[2], gout.shape[3]
-    xflat, gflat = _shift_operands(x, gout)
-    k = xflat.shape[0]
-    w2 = ow + TAPS - 1
     xpad = F.pad(xflat, (0, 0, 0, (TAPS - 1) * w2 + TAPS - 1))
     rows = [_contract(xpad[ky * w2 + kx:ky * w2 + kx + k], gflat)
             for ky in range(TAPS) for kx in range(TAPS)]
@@ -134,31 +124,35 @@ def _check(name, x, gout):
               % (name, tuple(x.shape), tuple(gout.shape)))
 
 
-def _launch(name, xop, gop, gout_shape, per_block, units):
-    """Run entry point ``vlt_<name>`` on the contiguous operands; blocks
-    own ``per_block`` of the ``units`` (images or rows), or about
-    four blocks per SM when ``per_block`` is None."""
+def _launch(name, x, gout, per_block, by_rows):
+    """Run entry point ``vlt_<name>`` on the space-to-depth frames and the
+    unpadded gradient (cast to x's dtype); blocks own ``per_block``
+    images, or flattened rows when ``by_rows``, or about four blocks per
+    SM when ``per_block`` is None."""
+    _check(name, x, gout)
+    n, oh, ow, _ = gout.shape
+    xp = conv1_s2d_geometry(x, oh, ow).contiguous()
+    g = gout.to(x.dtype).contiguous()
+    units = n * (oh + TAPS - 1) * (ow + TAPS - 1) if by_rows else n
     if per_block is None:
-        sms = torch.cuda.get_device_properties(
-            xop.device).multi_processor_count
+        sms = torch.cuda.get_device_properties(x.device).multi_processor_count
         per_block = -(-units // (_BLOCKS_PER_SM * sms))
     per_block = int(per_block)
     if per_block <= 0:
         error("%s: per-block work must be positive, got %d"
               % (name, per_block))
-    if xop.data_ptr() % 16 or gop.data_ptr() % 16:
+    if xp.data_ptr() % 16 or g.data_ptr() % 16:
         error("%s: the kernel's 16-byte loads need 16-byte aligned operands"
               % name)
     nblocks = -(-units // per_block)
     rows = TAPS * TAPS * BLOCK * BLOCK * 3
     partial = torch.empty((nblocks, rows, COUT), dtype=torch.float32,
-                          device=xop.device)
-    out = torch.empty((rows, COUT), dtype=torch.float32, device=xop.device)
-    n, oh, ow, _ = gout_shape
+                          device=x.device)
+    out = torch.empty((rows, COUT), dtype=torch.float32, device=x.device)
     rc = getattr(_build.library(), "vlt_" + name)(
-        xop.data_ptr(), gop.data_ptr(), partial.data_ptr(), out.data_ptr(),
-        n, oh, ow, _DTYPES[xop.dtype], per_block, nblocks,
-        torch.cuda.current_stream(xop.device).cuda_stream)
+        xp.data_ptr(), g.data_ptr(), partial.data_ptr(), out.data_ptr(),
+        n, oh, ow, _DTYPES[x.dtype], per_block, nblocks,
+        torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(rc, name)
     return conv1_dw_s2d_to_hwio(out, 3, COUT)
 
@@ -170,10 +164,7 @@ def conv1_dw(x, gout, block_images=None):
     ``block_images`` whole images (default: about four blocks per SM)."""
     if x.device.type == "cpu" and gout.device.type == "cpu":
         return conv1_dw_reference(x, gout)
-    _check("conv1_dw", x, gout)
-    xp = conv1_s2d_geometry(x, gout.shape[1], gout.shape[2]).contiguous()
-    dw = _launch("conv1_dw", xp, gout.to(x.dtype).contiguous(),
-                 tuple(gout.shape), block_images, x.shape[0])
+    dw = _launch("conv1_dw", x, gout, block_images, by_rows=False)
     conv1_dw.launches += 1
     return dw
 
@@ -182,15 +173,14 @@ conv1_dw.launches = 0
 
 
 def conv1_dw_shifted(x, gout, block_rows=None):
-    """The same gradient as ``conv1_dw``, over position-flattened operands
-    (rows = N*(oh+2)*(ow+2)): on the card each block owns ``block_rows``
-    consecutive rows (default: about four blocks per SM)."""
+    """The same gradient as ``conv1_dw``, with the positions flattened
+    over the (oh+2, ow+2) grid of every image (rows = N*(oh+2)*(ow+2)):
+    on the card each block owns ``block_rows`` consecutive rows (default:
+    about four blocks per SM).  The kernel reads the unpadded gradient;
+    only the plain version pads it."""
     if x.device.type == "cpu" and gout.device.type == "cpu":
         return conv1_dw_shifted_reference(x, gout)
-    _check("conv1_dw_shifted", x, gout)
-    xflat, gflat = (t.contiguous() for t in _shift_operands(x, gout))
-    dw = _launch("conv1_dw_shifted", xflat, gflat, tuple(gout.shape),
-                 block_rows, xflat.shape[0])
+    dw = _launch("conv1_dw_shifted", x, gout, block_rows, by_rows=True)
     conv1_dw_shifted.launches += 1
     return dw
 
