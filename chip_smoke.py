@@ -24,10 +24,12 @@ Phases (each raises on failure; nothing is caught and passed over):
    240x320 uint8, device crop/mean/mirror, bf16, SGD at lr 0.001 with a
    global-norm clip of 10, as the JAX bench.py trains): with the plain
    versions locked out one step launches exactly 2 LRN, 2 LRN backward,
-   32 lstm_step and 1 conv1_dw_shifted kernels, and a step with
+   32 lstm_step and 1 conv1_dw_shifted kernels (both LRN backward
+   launches in its vector design), and a step with
    ``conv1_dw="blocked"`` launches 1 conv1_dw and moves conv1 as the
    shifted one does; one float32 step at 1 clip agrees between the card
-   and the CPU; training steps are timed and one is profiled.
+   and the CPU; training steps are timed and one is profiled, which also
+   lists the layout copies (``aten::contiguous``) at the LRN sites.
 
 The line before the last lists every ported kernel as JSON (launches per
 serving forward for lrn and lstm_step, per training step for the
@@ -226,7 +228,10 @@ def lrn_bwd_case(n, h, w, c, dtype, gen, radius=2):
     x = F.relu(torch.randn((n, h, w, c), generator=gen, device="cuda")
                * 40.0).to(dtype)
     g = torch.randn((n, h, w, c), generator=gen, device="cuda").to(dtype)
+    before = dict(lrn_mod.lrn_backward.variant_launches)
     out = lrn_mod.lrn_backward(x, g, radius)
+    variant, = [k for k, v in lrn_mod.lrn_backward.variant_launches.items()
+                if v != before[k]]
     ref = lrn_mod.lrn_backward_reference(x, g, radius)
     torch.cuda.synchronize()
     # f32: the same formula, sums in the same order; bf16: dx within one
@@ -239,6 +244,9 @@ def lrn_bwd_case(n, h, w, c, dtype, gen, radius=2):
                              "(max abs %.3g, max rel %.3g; rtol %g atol %g)"
                              % (tuple(x.shape), dtype, abs_err, rel_err,
                                 rtol, atol))
+    if not torch.equal(lrn_mod.lrn_backward(x, g, radius), out):
+        raise AssertionError("lrn_bwd %s %s: two runs differ"
+                             % (tuple(x.shape), dtype))
     # library yardstick: autograd's backward of F.local_response_norm on
     # the same channels_last input (the port never calls it)
     size = 2 * radius + 1
@@ -250,6 +258,9 @@ def lrn_bwd_case(n, h, w, c, dtype, gen, radius=2):
         return torch.autograd.grad(y, xt, gt, retain_graph=True)
 
     lib_err = errors(library()[0].permute(0, 2, 3, 1), ref)[0]
+    # the rate this card's memory reaches for the same traffic: one torch
+    # add reads x and g and writes a tensor of their size, with no work
+    same_bytes = torch.empty_like(x)
     numel = x.numel()
     bnd, by = bound_ms(3 * numel * x.element_size(), 30 * numel)
     case = {
@@ -260,12 +271,18 @@ def lrn_bwd_case(n, h, w, c, dtype, gen, radius=2):
         "plain_ms": cuda_ms(
             lambda: lrn_mod.lrn_backward_reference(x, g, radius)),
         "library_ms": eager_ms(library, iters=5),
-        "library_max_abs_err": lib_err, "bound_ms": bnd, "bound_by": by}
-    log("  lrn_bwd %-18s %-8s r=%d max_abs %.3g max_rel %.3g | kernel "
-        "%.4f ms plain %.4f ms library %.4f ms bound %.1f us (%s)"
-        % (tuple(x.shape), case["dtype"], radius, abs_err, rel_err,
-           case["ms"], case["plain_ms"], case["library_ms"], bnd * 1e3, by))
-    del y, xt
+        "library_max_abs_err": lib_err, "bound_ms": bnd, "bound_by": by,
+        "variant": variant,
+        "same_bytes_add_ms": cuda_ms(lambda: torch.add(x, g,
+                                                       out=same_bytes))}
+    case["share_of_bound"] = bnd / case["ms"]
+    log("  lrn_bwd %-18s %-8s r=%d max_abs %.3g max_rel %.3g | %s kernel "
+        "%.4f ms (%.0f%% of bound) plain %.4f ms library %.4f ms bound "
+        "%.1f us (%s); an add of the same bytes %.4f ms"
+        % (tuple(x.shape), case["dtype"], radius, abs_err, rel_err, variant,
+           case["ms"], 100 * case["share_of_bound"], case["plain_ms"],
+           case["library_ms"], bnd * 1e3, by, case["same_bytes_add_ms"]))
+    del y, xt, same_bytes
     return case
 
 
@@ -401,6 +418,8 @@ class _PlainLockedOut:
 def reset_counts():
     for fn in _WRAPPERS.values():
         fn.launches = 0
+    lrn_mod.lrn_backward.variant_launches = dict.fromkeys(lrn_mod.VARIANTS,
+                                                          0)
 
 
 def counts(names=("lrn", "lstm_step")):
@@ -692,6 +711,11 @@ def phase_train(results):
     if launched != want:
         raise AssertionError("one training step launched %s, expected %s"
                              % (launched, want))
+    bwd_variants = dict(lrn_mod.lrn_backward.variant_launches)
+    log("  LRN backward launches by design: %s" % bwd_variants)
+    if bwd_variants != {"staged": 0, "vector": 2}:
+        raise AssertionError("the step's LRN backward launches were not "
+                             "both the vector design: %s" % bwd_variants)
     if not all(math.isfinite(v) for v in m_shift.values()):
         raise AssertionError("non-finite metrics %s" % m_shift)
     m_block, launched_b = locked_step(blocked, feed)
@@ -716,6 +740,7 @@ def phase_train(results):
     log("  conv1 step, blocked vs shifted: max abs %.3g of max %.3g"
         % (step_err, float(d_s.abs().max())))
     results["train_launches"] = launched
+    results["train_lrn_bwd_variants"] = bwd_variants
     results["train_launches_blocked"] = launched_b
     results["train_conv1_step_blocked_vs_shifted_max_abs"] = step_err
     del blocked
@@ -741,8 +766,13 @@ def phase_train(results):
     log("  %d-clip training step: %.2f ms = %.1f clips/s; peak memory "
         "%.1f GB" % (TRAIN_CLIPS, step_s * 1e3, TRAIN_CLIPS / step_s,
                      results["train_peak_mem_gb"]))
-    profile_rows("one training step", lambda: shifted.run_step(
+    prof = profile_rows("one training step", lambda: shifted.run_step(
         dict(feeds[0])), step_s, results, "train_profile")
+    n = TRAIN_CLIPS * FPC
+    copies = contiguous_copies(prof, {(n,) + site for site in LRN_SITES})
+    results["train_lrn_site_contiguous_copies"] = copies
+    log("  aten::contiguous copies of LRN-site-shaped tensors in the "
+        "profiled step: %s" % (copies or "none"))
 
 
 def train_card_vs_cpu(results):
@@ -788,8 +818,8 @@ def train_card_vs_cpu(results):
 def profile_rows(what, fn, wall_s, results, key, top=16):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
         fn()
         torch.cuda.synchronize()
     # kernel rows only (the aten rows would count their kernels twice)
@@ -803,12 +833,31 @@ def profile_rows(what, fn, wall_s, results, key, top=16):
                     for us, k, n in rows[:30]]
     if not total:
         log("  profiler recorded no device time")
-        return
+        return prof
     log("  profiler, %s: %.0f us of kernel time (%.0f%% of %.2f ms)"
         % (what, total, 100 * total / (wall_s * 1e6), wall_s * 1e3))
     for us, k, n in rows[:top]:
         log("    %8.0f us %5.1f%% x%-4d %s" % (us, 100 * us / total, n,
                                              k[:90]))
+    return prof
+
+
+def contiguous_copies(prof, shapes):
+    """The profiled ``aten::contiguous`` calls on tensors of the given
+    shapes, counted by shape and outermost enclosing event.  Each one
+    copied: ``Tensor.contiguous()`` returns an already contiguous tensor
+    before it reaches the dispatcher, so the profiler records none."""
+    found = {}
+    for ev in prof.events():
+        if ev.name != "aten::contiguous" or not ev.input_shapes or \
+                tuple(ev.input_shapes[0]) not in shapes:
+            continue
+        outer = ev
+        while outer.cpu_parent is not None:
+            outer = outer.cpu_parent
+        key = "%s under %s" % (tuple(ev.input_shapes[0]), outer.name)
+        found[key] = found.get(key, 0) + 1
+    return found
 
 
 # ---------------------------------------------------------------- main

@@ -74,26 +74,92 @@ def test_kernels_refuse_what_they_do_not_take(gen):
         lstm_mod.lstm_step(*args)
 
 
-# the two AlexNet training sites (conv1, conv2), a ragged channel count,
-# and a radius the kernel does not unroll
+def _vector_takes(channels, radius, dtype):
+    """Whether csrc/lrn_bwd.cu's vector design takes the shape (for
+    aligned tensors): 16-byte channel chunks, radius <= half a chunk."""
+    chunk = 16 // torch.tensor([], dtype=dtype).element_size()
+    return channels % chunk == 0 and 2 * radius <= chunk
+
+
+# the two AlexNet training sites (conv1, conv2), a ragged channel count, a
+# radius the vector design takes only in bf16, rows of one and of two
+# chunks, a row count no tile divides with rows of 12 bf16 chunks that
+# cross warps, and rows of exactly one warp's chunks
 @pytest.mark.cuda
-@pytest.mark.parametrize("channels,radius", [(96, 2), (256, 2), (7, 2),
-                                             (40, 3)])
-def test_lrn_backward_kernel_matches_plain(gen, channels, radius):
-    x = torch.relu(torch.randn((4, 9, 9, channels), generator=gen,
-                               device="cuda") * 40)
-    g = torch.randn((4, 9, 9, channels), generator=gen, device="cuda")
+@pytest.mark.parametrize("shape,radius", [
+    ((4, 9, 9, 96), 2), ((4, 9, 9, 256), 2), ((4, 9, 9, 7), 2),
+    ((4, 9, 9, 40), 3), ((4, 9, 9, 8), 2), ((4, 9, 9, 16), 2),
+    ((3, 7, 5, 96), 2), ((2, 9, 9, 256), 2)])
+def test_lrn_backward_kernel_matches_plain(gen, shape, radius):
+    x = torch.relu(torch.randn(shape, generator=gen, device="cuda") * 40)
+    g = torch.randn(shape, generator=gen, device="cuda")
     before = lrn_mod.lrn_backward.launches
-    torch.testing.assert_close(lrn_mod.lrn_backward(x, g, radius),
-                               lrn_mod.lrn_backward_reference(x, g, radius),
-                               rtol=1e-5, atol=1e-5)
+    by_variant = dict(lrn_mod.lrn_backward.variant_launches)
+    out = lrn_mod.lrn_backward(x, g, radius)
+    ref = lrn_mod.lrn_backward_reference(x, g, radius)
+    torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5)
+    # the same formula, the sums in the same order: the same bits
+    assert torch.equal(out, ref)
     xb, gb = x.to(torch.bfloat16), g.to(torch.bfloat16)
+    outb = lrn_mod.lrn_backward(xb, gb, radius)
     # bf16 dx: within one bf16 ulp of the plain version
     torch.testing.assert_close(
-        lrn_mod.lrn_backward(xb, gb, radius).float(),
-        lrn_mod.lrn_backward_reference(xb, gb, radius).float(),
+        outb.float(), lrn_mod.lrn_backward_reference(xb, gb, radius).float(),
         rtol=1e-2, atol=1e-2 * float(g.abs().max()))
     assert lrn_mod.lrn_backward.launches == before + 2
+    for dtype in (torch.float32, torch.bfloat16):
+        name = "vector" if _vector_takes(shape[-1], radius, dtype) \
+            else "staged"
+        by_variant[name] += 1
+    assert lrn_mod.lrn_backward.variant_launches == by_variant
+    # no atomics, no order that depends on scheduling: the same bits twice
+    assert torch.equal(lrn_mod.lrn_backward(xb, gb, radius), outb)
+    assert torch.equal(lrn_mod.lrn_backward(x, g, radius), out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lrn_backward_kernel_outside_its_fast_range(gen, dtype):
+    """Denominators outside [2^-32, 2^32] (a huge x; a tiny bias and
+    alpha) and a beta other than 0.75 send the vector kernel's tiles
+    through rsqrtf, sqrtf and __fdiv_rn themselves: still within the
+    plain version's tolerances, and its bits where beta is 0.75."""
+    shape = (3, 7, 5, 96)
+    x = torch.relu(torch.randn(shape, generator=gen, device="cuda") * 40)
+    x[0, 0] *= 1e9
+    x = x.to(dtype)
+    g = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    vector = lrn_mod.lrn_backward.variant_launches["vector"]
+    for kw in (dict(), dict(bias=1e-12, alpha=1e-12), dict(beta=0.6)):
+        out = lrn_mod.lrn_backward(x, g, 2, **kw)
+        ref = lrn_mod.lrn_backward_reference(x, g, 2, **kw)
+        assert bool(torch.isfinite(ref).all())
+        if dtype == torch.float32:
+            torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5)
+        else:
+            torch.testing.assert_close(
+                out.float(), ref.float(), rtol=1e-2,
+                atol=1e-2 * float(ref.float().abs().max()))
+        if "beta" not in kw:
+            assert torch.equal(out, ref)
+    assert lrn_mod.lrn_backward.variant_launches["vector"] == vector + 3
+
+
+@pytest.mark.cuda
+def test_lrn_backward_unaligned_tensors_take_the_staged_kernel(gen):
+    """A view that starts 2 bytes into its storage cannot be read in
+    16-byte chunks: the staged design takes it, with the same result."""
+    shape = (2, 5, 5, 96)
+    x = torch.relu(torch.randn(shape, generator=gen, device="cuda") * 40)
+    g = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+    buf = torch.empty(x.numel() + 1, dtype=torch.bfloat16, device="cuda")
+    xu = buf[1:].view(shape)
+    xu.copy_(x)
+    assert xu.is_contiguous() and xu.data_ptr() % 16 != 0
+    staged = lrn_mod.lrn_backward.variant_launches["staged"]
+    out = lrn_mod.lrn_backward(xu, g)
+    assert lrn_mod.lrn_backward.variant_launches["staged"] == staged + 1
+    assert torch.equal(out, lrn_mod.lrn_backward(xu.clone(), g))
 
 
 # (39, 43) and (45, 37) as in the CPU tests; (40, 42) pads asymmetrically;

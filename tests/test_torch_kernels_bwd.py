@@ -43,10 +43,15 @@ def _np(t):
 
 
 # ------------------------------------------------------------- (a) LRN bwd
+# the training sites' channel counts, a ragged one, one and two 16-byte
+# chunks per row (C 8 and 16 in bf16), rows that cross warps in a row
+# count no tile divides, whole-warp rows, and a radius of 3
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("shape", [(2, 5, 5, 96), (1, 3, 4, 256),
-                                   (3, 2, 2, 7)])
-def test_lrn_backward_matches_jax(shape, dtype):
+@pytest.mark.parametrize("shape,radius", [
+    ((2, 5, 5, 96), 2), ((1, 3, 4, 256), 2), ((3, 2, 2, 7), 2),
+    ((2, 5, 5, 8), 2), ((2, 5, 5, 16), 2), ((3, 7, 5, 96), 2),
+    ((2, 9, 9, 256), 2), ((2, 5, 5, 40), 3)])
+def test_lrn_backward_matches_jax(shape, radius, dtype):
     """Against the JAX Pallas backward (interpret mode) -- the same formula
     and rounding points, so f32 within 1e-5 relative and bf16 within one
     bf16 ulp of dx (rtol 1e-2) -- and against jax.grad through the sliding
@@ -58,10 +63,12 @@ def test_lrn_backward_matches_jax(shape, dtype):
     x, g = _lrn_inputs(shape, 0)
     xj, gj = jnp.asarray(x, jdt), jnp.asarray(g, jdt)
     xt, gt = torch.from_numpy(x).to(tdt), torch.from_numpy(g).to(tdt)
-    out = _np(lrn_mod.lrn_backward_reference(xt, gt))
-    _, vjp = jax.vjp(lambda v: pk.lrn(v, block_rows=64, interpret=True), xj)
+    out = _np(lrn_mod.lrn_backward_reference(xt, gt, radius))
+    _, vjp = jax.vjp(lambda v: pk.lrn(v, radius, block_rows=64,
+                                      interpret=True), xj)
     pallas = np.asarray(vjp(gj)[0].astype(jnp.float32))
-    _, vjp = jax.vjp(lambda v: jlayers._lrn_slide(v, 2, 1.0, 2e-5, 0.75), xj)
+    _, vjp = jax.vjp(
+        lambda v: jlayers._lrn_slide(v, radius, 1.0, 2e-5, 0.75), xj)
     slide = np.asarray(vjp(gj)[0].astype(jnp.float32))
     scale = float(np.abs(pallas).max())
     if dtype == "float32":

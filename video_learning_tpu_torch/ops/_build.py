@@ -117,7 +117,8 @@ def library():
                                           i32, i32, ptr]
             lib.vlt_lstm_step.restype = i32
             lib.vlt_lrn_bwd.argtypes = [ptr, ptr, ptr, i64, i32, i32, i32,
-                                        f32, f32, f32, f32, ptr]
+                                        f32, f32, f32, f32,
+                                        ctypes.POINTER(i32), ptr]
             lib.vlt_lrn_bwd.restype = i32
             for fn in (lib.vlt_conv1_dw, lib.vlt_conv1_dw_shifted):
                 fn.argtypes = [ptr, ptr, ptr, ptr, i64, i32, i32, i32, i64,

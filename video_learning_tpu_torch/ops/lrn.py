@@ -7,13 +7,16 @@ versions and the autograd Function that joins them.
 tensors, and the plain ``lrn_reference`` / ``lrn_backward_reference`` on
 CPU tensors; on any other device, or a tensor a kernel does not take,
 they raise.  ``lrn.launches`` and ``lrn_backward.launches`` count kernel
-launches.
+launches; ``lrn_backward.variant_launches`` counts them by the design
+``csrc/lrn_bwd.cu`` chose for the shape (``VARIANTS``).
 
 A kernel's output has no ``grad_fn``, so a differentiable caller goes
 through ``LRNFunction``, whose forward is ``lrn`` and whose backward is
 ``lrn_backward``; ``lrn`` raises rather than hand back a detached result
 for a CUDA tensor that requires a gradient while grad mode is on.
 """
+
+import ctypes
 
 import torch
 import torch.nn.functional as F
@@ -22,6 +25,11 @@ from video_learning_tpu_torch.ops import _build
 from video_learning_tpu_torch.utils import error
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# lrn_backward's kernel designs, by the index vlt_lrn_bwd reports: "vector"
+# (16-byte chunks per lane, windows in registers) where C is a multiple of
+# 16 bytes, the radius at most half of that and the pointers 16-byte
+# aligned; "staged" (a warp per row, staged in shared memory) otherwise
+VARIANTS = ("staged", "vector")
 
 
 def _window_sum(v, radius):
@@ -108,7 +116,9 @@ lrn.launches = 0
 def lrn_backward(x, g, depth_radius=2, bias=1.0, alpha=2e-5, beta=0.75):
     """dL/dx of ``lrn`` at x for the output gradient g: both contiguous
     channels-last tensors of one shape and dtype (float32 or bfloat16).
-    Takes C up to 305 at radius 2 on the card."""
+    On the card takes any C that is a multiple of 16 bytes at a radius up
+    to half of that (the vector design), and other C up to 305 at radius 2
+    (the staged design)."""
     if x.device.type == "cpu" and g.device.type == "cpu":
         return lrn_backward_reference(x, g, depth_radius, bias, alpha, beta)
     _check("lrn_backward", x)
@@ -119,18 +129,22 @@ def lrn_backward(x, g, depth_radius=2, bias=1.0, alpha=2e-5, beta=0.75):
                  x.device))
     channels = x.shape[-1]
     dx = torch.empty_like(x)
+    variant = ctypes.c_int(-1)
     rc = _build.library().vlt_lrn_bwd(
         x.data_ptr(), g.data_ptr(), dx.data_ptr(),
         x.numel() // max(channels, 1), channels, _DTYPES[x.dtype],
         int(depth_radius), float(bias), float(alpha), float(beta),
-        float(2.0 * alpha * beta),
+        float(2.0 * alpha * beta), ctypes.byref(variant),
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(rc, "lrn_backward")
-    lrn_backward.launches += 1
+    if variant.value >= 0:          # -1: nothing to compute, no launch
+        lrn_backward.launches += 1
+        lrn_backward.variant_launches[VARIANTS[variant.value]] += 1
     return dx
 
 
 lrn_backward.launches = 0
+lrn_backward.variant_launches = dict.fromkeys(VARIANTS, 0)
 
 
 class LRNFunction(torch.autograd.Function):
