@@ -31,6 +31,23 @@ Phases (each raises on failure; nothing is caught and passed over):
    and the CPU; training steps are timed and one is profiled, which also
    lists the layout copies (``aten::contiguous``) at the LRN sites.
 
+6. captioning at full width (the JAX ``bench.py`` caption workload:
+   240x320 uint8 frames, device crop to 227, AlexNet to fc7, state_fc
+   4096 -> 512, a 1x512 LSTM, 10,000 words, 300-d embeddings, T = 20,
+   bf16, random weights from a fixed seed): with the plain versions
+   locked out a greedy decode of 64 items launches exactly 2 LRN and 20
+   lstm_step kernels, a beam-4 decode 2 LRN and 20 lstm_step kernels of
+   256 rows each, and one caption training step (SGD at lr 0.001, a
+   global-norm clip of 10, dropout 0.5) 2 LRN, 2 LRN backward (vector),
+   20 lstm_step and 1 conv1_dw_shifted; greedy and beam-4 decodes of 2
+   items in float32 agree between the card and the CPU (tokens equal,
+   except at a step whose CPU margin lies within 1e-4 of a tie); greedy
+   captions/s at 1, 8, 32 and 64 items, beam-4 at 64 and the training
+   step are timed, one greedy decode is profiled (the card's idle share),
+   and one /predict to a served, saved and reloaded caption module
+   answers the captions of a direct call.  Phase 2 also holds lstm_step
+   at the decode shapes (64 and 256 rows of 512).
+
 The line before the last lists every ported kernel as JSON (launches per
 serving forward for lrn and lstm_step, per training step for the
 backward kernels); the last line is ``{"ok": true, "device": {...}}``.
@@ -55,12 +72,16 @@ import torch
 import torch.nn.functional as F
 
 from video_learning_tpu_torch import checkpoint, serving
+from video_learning_tpu_torch.defs import defs
 from video_learning_tpu_torch.flagship import (SERVING_IMGPROC, SERVING_MEAN,
-                                               flagship)
+                                               caption_feed,
+                                               caption_flagship, flagship)
+from video_learning_tpu_torch.models import lstm as decode_mod
 from video_learning_tpu_torch.ops import _build
 from video_learning_tpu_torch.ops import conv1_dw as conv1_mod
 from video_learning_tpu_torch.ops import lrn as lrn_mod
 from video_learning_tpu_torch.ops import lstm_step as lstm_mod
+from video_learning_tpu_torch.ops.preprocess import make_preprocessor
 from video_learning_tpu_torch.tools import serve as serve_mod
 from video_learning_tpu_torch.train import Train
 
@@ -75,6 +96,8 @@ SERVE_CLIPS = 32        # clips per timed serving forward
 FPC, IMAGE, RAW_HW, CLASSES, HIDDEN, LAYERS = 16, 227, (240, 320), 101, 256, 2
 LRN_SITES = ((57, 57, 96), (28, 28, 256))   # conv1 and conv2 at 227x227
 TRAIN_CLIPS = 128       # clips per training step (bench.py's batch)
+CAPTION_ITEMS = 64      # captions per decode / training step (bench.py)
+BEAM = 4                # beam width of the beam-search decode
 
 
 def log(msg):
@@ -185,8 +208,7 @@ def lrn_case(n, h, w, c, dtype, gen, radius=2):
     return case
 
 
-def lstm_case(batch, gen):
-    H = HIDDEN
+def lstm_case(batch, gen, H=HIDDEN):
 
     def rnd(*shape, scale=1.0):
         return torch.randn(shape, generator=gen, device="cuda") * scale
@@ -216,11 +238,12 @@ def lstm_case(batch, gen):
             iters=50),
         "eager_ms": eager_ms(lambda: lstm_mod.lstm_step(xproj, h, c, wh, b)),
         "library_ms": None, "bound_ms": bnd, "bound_by": by}
-    log("  lstm_step B=%-4d max_abs %.3g | kernel %.4f ms plain %.4f ms "
-        "bound %.2f us (%s); eager launch-to-launch %.4f ms; no single "
-        "library call computes it"
-        % (batch, abs_err, case["ms"], case["plain_ms"], bnd * 1e3, by,
-           case["eager_ms"]))
+    case["share_of_bound"] = bnd / case["ms"]
+    log("  lstm_step B=%-4d H=%d max_abs %.3g | kernel %.4f ms (%.0f%% of "
+        "bound) plain %.4f ms bound %.2f us (%s); eager launch-to-launch "
+        "%.4f ms; no single library call computes it"
+        % (batch, H, abs_err, case["ms"], 100 * case["share_of_bound"],
+           case["plain_ms"], bnd * 1e3, by, case["eager_ms"]))
     return case
 
 
@@ -363,7 +386,14 @@ def phase_kernels(clips):
     # the training step's forward sites (not this line's main path)
     lrn_cases += [lrn_case(train_frames, *site, torch.bfloat16, gen)
                   for site in LRN_SITES]
+    # the caption path's sites (phase 6): conv1 and conv2 of its frames
+    cap_lrn = [lrn_case(CAPTION_ITEMS, *site, torch.bfloat16, gen)
+               for site in LRN_SITES]
     lstm_cases = [lstm_case(b, gen) for b in (1, 8, 128)]
+    # the caption decode shapes: greedy (64 rows) and beam-4 (256 rows)
+    _, hidden = caption_sizes(caption_flagship()[1])
+    lstm_cases += [lstm_case(b, gen, hidden)
+                   for b in (CAPTION_ITEMS, BEAM * CAPTION_ITEMS)]
     lstm_main = lstm_case(clips, gen)
     bwd_cases = [lrn_bwd_case(8 * FPC, *site, dtype, gen)
                  for site in LRN_SITES
@@ -373,14 +403,19 @@ def phase_kernels(clips):
                                radius=3)]
     bwd_main = [lrn_bwd_case(train_frames, *site, torch.bfloat16, gen)
                 for site in LRN_SITES]
+    bwd_cases += [lrn_bwd_case(CAPTION_ITEMS, *site, torch.bfloat16, gen)
+                  for site in LRN_SITES]
     dw = {}
     for fn in (conv1_mod.conv1_dw, conv1_mod.conv1_dw_shifted):
         cases = [conv1_dw_case(fn, 256, dtype, gen)
                  for dtype in (torch.bfloat16, torch.float32)]
+        if fn is conv1_mod.conv1_dw_shifted:    # the caption step's split
+            cases.append(conv1_dw_case(fn, CAPTION_ITEMS, torch.bfloat16,
+                                       gen))
         main = conv1_dw_case(fn, train_frames, torch.bfloat16, gen,
                              graph_plain=False)
         dw[fn.__name__] = (cases + [main], [main])
-    return {"lrn": (lrn_cases + lrn_main, lrn_main),
+    return {"lrn": (lrn_cases + cap_lrn + lrn_main, lrn_main),
             "lstm_step": (lstm_cases + [lstm_main], [lstm_main] *
                           (FPC * LAYERS)),
             "lrn_bwd": (bwd_cases + bwd_main, bwd_main), **dw}
@@ -775,15 +810,11 @@ def phase_train(results):
         "profiled step: %s" % (copies or "none"))
 
 
-def train_card_vs_cpu(results):
-    """One float32 step at 1 clip, on the card and on the CPU from the
-    same parameters and feed.  SGD at lr 1 without clipping, so each
-    parameter moves by exactly minus its gradient."""
-    settings, model = training_flagship(1, "float32", base_lr=1.0,
-                                        clip_norm=None)
-    processor = settings.feeder.datasets[0].processor
-    start = model.init_params(seed=3, device="cpu")
-    feed = training_feed(processor, 1, 5, "cpu")
+def step_card_vs_cpu(settings, model, start, feed, what):
+    """One float32 training step on the card and on the CPU from the same
+    parameters and feed; returns (loss rel error, worst gradient tensor
+    rel norm).  ``settings`` trains by SGD at lr 1 without clipping, so
+    each parameter moves by exactly minus its gradient."""
     steps = {}
     for device in ("cuda", "cpu"):
         eng = Train(settings, settings.feeder, model, params=start,
@@ -794,6 +825,7 @@ def train_card_vs_cpu(results):
         after = checkpoint.flatten_tree(eng.params)
         steps[device] = (metrics, {k: after[k].detach().cpu() - before[k]
                                    for k in before})
+        del eng
     (m_gpu, g_gpu), (m_cpu, g_cpu) = steps["cuda"], steps["cpu"]
     # float32 on both (TF32 off): sums run in other orders, and a relu
     # whose input lies within rounding of zero may switch on one side
@@ -802,15 +834,25 @@ def train_card_vs_cpu(results):
     loss_err = abs(m_gpu["loss"] - m_cpu["loss"]) / abs(m_cpu["loss"])
     worst = max(float((g_gpu[k] - g_cpu[k]).norm() /
                       g_cpu[k].norm().clamp_min(1e-30)) for k in g_cpu)
-    log("  float32 step at 1 clip, card vs CPU: loss %.7g vs %.7g (rel "
-        "%.3g, tolerance 1e-4); worst gradient tensor rel norm %.3g "
-        "(tolerance 1e-2)" % (m_gpu["loss"], m_cpu["loss"], loss_err,
-                              worst))
+    log("  float32 %s, card vs CPU: loss %.7g vs %.7g (rel %.3g, tolerance "
+        "1e-4); worst gradient tensor rel norm %.3g (tolerance 1e-2)"
+        % (what, m_gpu["loss"], m_cpu["loss"], loss_err, worst))
     if not (loss_err <= 1e-4 and worst <= 1e-2):
         raise AssertionError("card and CPU training steps disagree")
     if any(float(g.abs().max()) == 0.0 for k, g in g_cpu.items()
            if k.endswith("/w")):
         raise AssertionError("a weight got no gradient")
+    return loss_err, worst
+
+
+def train_card_vs_cpu(results):
+    """One float32 step at 1 clip, on the card and on the CPU."""
+    settings, model = training_flagship(1, "float32", base_lr=1.0,
+                                        clip_norm=None)
+    processor = settings.feeder.datasets[0].processor
+    loss_err, worst = step_card_vs_cpu(
+        settings, model, model.init_params(seed=3, device="cpu"),
+        training_feed(processor, 1, 5, "cpu"), "step at 1 clip")
     results["train_fp32_card_vs_cpu"] = {"loss_rel": loss_err,
                                          "grad_rel_norm_max": worst}
 
@@ -858,6 +900,381 @@ def contiguous_copies(prof, shapes):
         key = "%s under %s" % (tuple(ev.input_shapes[0]), outer.name)
         found[key] = found.get(key, 0) + 1
     return found
+
+
+# ------------------------------------------------------------- phase 6
+def caption_frames(processor, items, seed, device):
+    """Raw uint8 frames made on ``device`` from a seed, and the host-drawn
+    crop/mirror parameters there too."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    frames = torch.randint(0, 256, (items,) + RAW_HW + (3,), generator=gen,
+                           device=device, dtype=torch.uint8)
+    prm = torch.from_numpy(processor.draw_params(items, random.Random(seed)))
+    return frames, prm.to(device)
+
+
+class _RowsOf:
+    """Records the batch rows of every lstm_step call the decoder makes
+    (the wrapper still launches and counts)."""
+
+    def __enter__(self):
+        self.rows = []
+        self.saved = decode_mod.lstm_step
+
+        def recording(xproj, h, c, wh, b):
+            self.rows.append(int(h.shape[0]))
+            return self.saved(xproj, h, c, wh, b)
+
+        decode_mod.lstm_step = recording
+        return self
+
+    def __exit__(self, *exc):
+        decode_mod.lstm_step = self.saved
+
+
+def caption_sizes(model):
+    """(T, H) of a captioner: its word-grid length and LSTM width."""
+    net = next(spec["net"] for spec in model.specs if spec["caption"])
+    return model.caption_dataset.max_sequence_length, net.lstm_params[0]
+
+
+def first_difference(a, b):
+    """(item, step) of the first differing token of two (B, T) arrays,
+    scanning items in order, or None."""
+    for i, (ra, rb) in enumerate(zip(a, b)):
+        diff = np.flatnonzero(ra != rb)
+        if diff.size:
+            return i, int(diff[0])
+    return None
+
+
+def caption_card_vs_cpu(params_cpu, results):
+    """Greedy and beam-4 decodes of 2 items in float32 on the card and on
+    the CPU from the same parameters and frames, each through
+    ``Model.apply(decode=True)`` and through the decoder called on
+    ``Model.decoder_inputs`` (greedy with return_type standard for its
+    logits, beam recording its candidate scores).  On the CPU the two
+    routes give the same tokens.  Card and CPU tokens must be equal on
+    both routes, except from a step where the CPU's choice lies within
+    1e-4 x max(1, max|value|) of a tie (its top-2 logit margin for
+    greedy, the least gap among its K + 1 best candidate scores for beam;
+    for beam any step up to the first differing token counts, since a
+    different choice may show in the best beam's tokens only later).
+    Greedy logits agree to 1e-3 x max(1, max|logit|) up to the first
+    differing step."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    settings, model = caption_flagship(batch_size=2,
+                                       compute_dtype="float32")
+    dset = model.caption_dataset
+    eos = dset.vocabulary.index("EOS")
+    frames, prm = caption_frames(dset.processor, 2, 11, "cpu")
+    out = {}
+    for device in ("cuda", "cpu"):
+        params = serving._to_device(params_cpu, device)
+        pre = make_preprocessor(dset.processor, out_dtype=torch.float32,
+                                device=device)
+        feed = {"frames_main_input": pre(frames.to(device),
+                                         prm.to(device))}
+        args = model.decoder_inputs(params, feed)
+        ids, logits = decode_mod.greedy_decode(
+            **args, return_type=defs.return_type.standard)
+        margins = []
+        top_k = decode_mod._top_k
+
+        def recording(x, k):
+            vals = torch.sort(x, dim=1, descending=True).values[:, :k + 1]
+            gaps = (vals[:, :-1] - vals[:, 1:]).min(dim=1).values
+            scale = vals.abs().max(dim=1).values.clamp(min=1.0)
+            margins.append((gaps / scale).cpu().numpy())
+            return top_k(x, k)
+
+        decode_mod._top_k = recording
+        try:
+            beam = decode_mod.beam_decode(eos_index=eos, beam_width=BEAM,
+                                          **args)
+        finally:
+            decode_mod._top_k = top_k
+        applied = {}
+        settings.captioning.beam_width = BEAM
+        for search in ("max", "beam"):
+            settings.captioning.caption_search = search
+            applied[search] = model.apply(params, feed,
+                                          decode=True).cpu().numpy()
+        settings.captioning.caption_search = "max"
+        out[device] = {"greedy": ids.cpu().numpy(),
+                       "logits": logits.cpu().numpy(),
+                       "beam": beam.cpu().numpy(),
+                       "margins": np.stack(margins, axis=1),
+                       "apply greedy": applied["max"],
+                       "apply beam": applied["beam"]}
+    card, cpu = out["cuda"], out["cpu"]
+    if not (np.array_equal(cpu["apply greedy"], cpu["greedy"]) and
+            np.array_equal(cpu["apply beam"], cpu["beam"])):
+        raise AssertionError("on the CPU Model.apply(decode=True) decodes "
+                             "other tokens than the decoder called on "
+                             "Model.decoder_inputs")
+    c_logits, c_marg = cpu["logits"], cpu["margins"]
+    top2 = np.sort(c_logits, axis=-1)[..., -2:]
+
+    def greedy_tie(i, t):
+        margin = top2[i, t, 1] - top2[i, t, 0]
+        limit = 1e-4 * max(1.0, float(np.abs(c_logits[i, t]).max()))
+        log("  greedy step %d of item %d: CPU top-2 margin %.3g (limit "
+            "%.3g)" % (t, i, margin, limit))
+        return margin < limit
+
+    def beam_tie(i, t):
+        least = float(c_marg[i, :t + 1].min())
+        log("  beam item %d: least CPU top-K gap up to step %d: %.3g "
+            "(limit 1e-4)" % (i, t, least))
+        return least < 1e-4
+
+    report = {"greedy_min_cpu_margin": float((top2[..., 1] -
+                                              top2[..., 0]).min()),
+              "beam_min_cpu_margin": float(c_marg.min())}
+    for key, tie in (("greedy", greedy_tie), ("apply greedy", greedy_tie),
+                     ("beam", beam_tie), ("apply beam", beam_tie)):
+        diff = first_difference(card[key], cpu[key])
+        report[key.replace(" ", "_") + "_first_difference"] = diff
+        log("  float32, 2 items, card vs CPU, %s%s: tokens %s"
+            % (key, "-%d" % BEAM if key.endswith("beam") else "",
+               "equal" if diff is None else
+               "differ first at item %d step %d" % diff))
+        if diff is not None and not tie(*diff):
+            raise AssertionError("%s tokens differ at a decided step"
+                                 % key)
+    diff = report["greedy_first_difference"]
+    upto = card["greedy"].shape[1] if diff is None else diff[1] + 1
+    scale = max(1.0, float(np.abs(c_logits).max()))
+    err = float(np.abs(card["logits"][:, :upto] -
+                       c_logits[:, :upto]).max())
+    report["greedy_logits_max_abs"] = err
+    log("  greedy logits up to step %d max abs %.3g (tolerance %.3g); "
+        "least CPU top-2 margin %.3g; least CPU top-K gap %.3g (relative)"
+        % (upto - 1, err, 1e-3 * scale, report["greedy_min_cpu_margin"],
+           report["beam_min_cpu_margin"]))
+    if not err <= 1e-3 * scale:
+        raise AssertionError("greedy logits disagree: %.3g" % err)
+    results["caption_fp32_card_vs_cpu"] = report
+
+
+def timed_s(fn, reps):
+    """Mean seconds per call on the host clock around calls that end in a
+    sync, after two warm-up calls."""
+    fn()
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.monotonic() - t0) / reps
+
+
+def phase_caption(results):
+    settings, model = caption_flagship(batch_size=CAPTION_ITEMS)
+    dset = model.caption_dataset
+    T, H = caption_sizes(model)
+    log("phase 6: captioning at full width (%d items, vocabulary %d, T %d, "
+        "1x%d LSTM, %s)" % (CAPTION_ITEMS, len(dset.vocabulary), T, H,
+                            settings.compute_dtype))
+    t0 = time.monotonic()
+    params_cpu = model.init_params(seed=0, device="cpu")
+    params = serving._to_device(params_cpu, "cuda")
+    log("  init (torch.Generator seed 0): %.1f s" % (time.monotonic() - t0))
+    pre = make_preprocessor(dset.processor, out_dtype=model.compute_dtype,
+                            device="cuda")
+    frames, prm = caption_frames(dset.processor, CAPTION_ITEMS, 0, "cuda")
+
+    def decode(n=CAPTION_ITEMS):
+        return model.apply(params, {"frames_main_input":
+                                    pre(frames[:n], prm[:n])}, decode=True)
+
+    decode(1)                               # first call: lazy set-up
+    torch.cuda.synchronize()
+    want = {"lrn": 2, "lstm_step": T}
+    launched = {}
+    for search in ("max", "beam"):
+        settings.captioning.caption_search = search
+        settings.captioning.beam_width = BEAM
+        reset_counts()
+        with _PlainLockedOut(), _RowsOf() as rows:
+            ids = decode()
+            torch.cuda.synchronize()
+        launched[search] = counts()
+        log("  one %s decode of %d items launched %s; lstm_step rows %s"
+            % ("greedy" if search == "max" else "beam-%d" % BEAM,
+               CAPTION_ITEMS, launched[search], sorted(set(rows.rows))))
+        rows_want = CAPTION_ITEMS * (BEAM if search == "beam" else 1)
+        if launched[search] != want or set(rows.rows) != {rows_want}:
+            raise AssertionError("%s decode launched %s at rows %s, "
+                                 "expected %s at %d rows"
+                                 % (search, launched[search],
+                                    sorted(set(rows.rows)), want,
+                                    rows_want))
+        ids = ids.cpu().numpy()
+        if ids.shape != (CAPTION_ITEMS, T) or \
+                ids.dtype != np.int32 or ids.min() < 0 or \
+                ids.max() >= len(dset.vocabulary):
+            raise AssertionError("decoded ids %s %s in [%d, %d]"
+                                 % (ids.shape, ids.dtype, ids.min(),
+                                    ids.max()))
+    results["caption_decode_launches"] = launched
+
+    caption_card_vs_cpu(params_cpu, results)
+
+    # times: inputs on the card, host clock around calls ending in a sync
+    settings.captioning.caption_search = "max"
+    greedy, idle = {}, {}
+    for n in (1, 8, 32, CAPTION_ITEMS):
+        sec = timed_s(lambda: decode(n), 20)
+        greedy[n] = n / sec
+        log("  greedy decode of %2d items: %.2f ms = %.1f captions/s"
+            % (n, sec * 1e3, n / sec))
+        # where the time goes: kernel rows of one profiled decode
+        prof = {}
+        profile_rows("one greedy decode of %d items" % n,
+                     lambda: decode(n), sec, prof, "p",
+                     top=12 if n == CAPTION_ITEMS else 4)
+        idle[n] = 1.0 - prof["p_kernel_us_total"] / (sec * 1e6)
+        log("  the card is idle %.0f%% of a greedy decode of %d items (1 - "
+            "kernel time / wall time)" % (100 * idle[n], n))
+    results["caption_greedy_captions_per_s"] = greedy
+    results["caption_greedy_profile"] = prof["p"]
+    results["caption_greedy_idle_share"] = idle
+    settings.captioning.caption_search = "beam"
+    sec = timed_s(decode, 5)
+    results["caption_beam_captions_per_s"] = CAPTION_ITEMS / sec
+    log("  beam-%d decode of %d items: %.2f ms = %.1f captions/s"
+        % (BEAM, CAPTION_ITEMS, sec * 1e3, CAPTION_ITEMS / sec))
+    prof = {}
+    profile_rows("one beam-%d decode of %d items" % (BEAM, CAPTION_ITEMS),
+                 decode, sec, prof, "p", top=8)
+    results["caption_beam_profile"] = prof["p"]
+    results["caption_beam_idle_share"] = \
+        1.0 - prof["p_kernel_us_total"] / (sec * 1e6)
+    settings.captioning.caption_search = "max"
+
+    phase_caption_serve(model, params, dset, results)
+    del params
+    torch.cuda.empty_cache()
+    phase_caption_train(settings, model, params_cpu, results)
+    torch.cuda.empty_cache()
+    caption_train_card_vs_cpu(params_cpu, results)
+
+
+def caption_train_card_vs_cpu(params_cpu, results):
+    """One float32 caption training step of 2 captions (the 1xH LSTM's
+    backward over T steps, the vocabulary-wide head), on the card and on
+    the CPU, held as phase 5's step is."""
+    settings, model = caption_flagship(batch_size=2,
+                                       compute_dtype="float32")
+    settings.train.base_lr, settings.train.clip_norm = 1.0, None
+    loss_err, worst = step_card_vs_cpu(
+        settings, model, params_cpu,
+        caption_train_feed(settings, model, 5, "cpu"),
+        "caption training step of 2 captions")
+    results["caption_train_fp32_card_vs_cpu"] = {
+        "loss_rel": loss_err, "grad_rel_norm_max": worst}
+
+
+def caption_train_feed(settings, model, seed, device):
+    """bench.py's caption feed: ``flagship.caption_feed``'s word grid and
+    scattered labels on ``device``, with raw uint8 frames made there and
+    crop/mirror parameters for the device preprocessing."""
+    feed = {k: torch.from_numpy(v).to(device) for k, v in
+            caption_feed(settings, model, seed).items()
+            if k != "frames_main_input"}
+    frames, prm = caption_frames(model.caption_dataset.processor,
+                                 settings.train.batch_size, seed, device)
+    feed["frames_main_input"] = frames
+    feed["frames_main_input/proc_params"] = prm
+    return feed
+
+
+def phase_caption_train(settings, model, params_cpu, results):
+    engine = Train(settings, settings.feeder, model, params=params_cpu,
+                   device="cuda")
+    feed = caption_train_feed(settings, model, 0, "cuda")
+    t0 = time.monotonic()
+    metrics, launched = locked_step(engine, feed)
+    log("  first caption training step %.1f s: %s; launched %s"
+        % (time.monotonic() - t0, metrics, launched))
+    want = {"lrn": 2, "lrn_bwd": 2, "lstm_step": caption_sizes(model)[0],
+            "conv1_dw": 0, "conv1_dw_shifted": 1}
+    variants = dict(lrn_mod.lrn_backward.variant_launches)
+    if launched != want or variants != {"staged": 0, "vector": 2}:
+        raise AssertionError("one caption training step launched %s (LRN "
+                             "backward designs %s), expected %s, both "
+                             "vector" % (launched, variants, want))
+    if not all(math.isfinite(v) for v in metrics.values()):
+        raise AssertionError("non-finite metrics %s" % metrics)
+    results["caption_train_launches"] = launched
+    feeds = [feed, caption_train_feed(settings, model, 1, "cuda")]
+    step = [0]
+
+    def run():
+        engine.run_step(dict(feeds[step[0] % 2]))
+        step[0] += 1
+
+    sec = timed_s(run, 6)
+    results["caption_train_step_ms"] = sec * 1e3
+    results["caption_train_captions_per_s"] = CAPTION_ITEMS / sec
+    log("  %d-caption training step: %.2f ms = %.1f captions/s"
+        % (CAPTION_ITEMS, sec * 1e3, CAPTION_ITEMS / sec))
+    prof = {}
+    profile_rows("one caption training step", run, sec, prof, "p", top=10)
+    results["caption_train_profile"] = prof["p"]
+    results["caption_train_idle_share"] = \
+        1.0 - prof["p_kernel_us_total"] / (sec * 1e6)
+
+
+def phase_caption_serve(model, params, dset, results):
+    """One /predict to tools/serve over a saved and reloaded caption
+    module: its "captions" are those of a direct call."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = tmp + "/caption.zip"
+        serving.ServingModule(model, params, batch_items=8,
+                              device="cuda").save(path)
+        module = serving.load(path, device="cuda")
+    frames, prm = caption_frames(dset.processor, 2, 21, "cpu")
+    frames, prm = frames.numpy(), prm.numpy()
+    direct = module.captions_from_ids(module(frames, prm))
+    started = threading.Event()
+    thread = threading.Thread(
+        target=serve_mod.serve, args=(module,),
+        kwargs=dict(port=0, window_ms=5.0, started=started,
+                    request_timeout_s=300), daemon=True)
+    thread.start()
+    if not started.wait(timeout=600):
+        raise AssertionError("caption server did not start")
+    try:
+        buf = io.BytesIO()
+        np.savez(buf, frames_main_input=frames,
+                 **{"frames_main_input/proc_params": prm})
+        conn = http.client.HTTPConnection(*started.addr, timeout=300)
+        try:
+            conn.request("POST", "/predict", body=buf.getvalue(),
+                         headers={"Content-Type": "application/x-npz"})
+            resp = conn.getresponse()
+            status, body = resp.status, resp.read()
+        finally:
+            conn.close()
+    finally:
+        started.httpd.shutdown()
+        thread.join(timeout=120)
+    if thread.is_alive():
+        raise AssertionError("caption server thread did not stop")
+    if status != 200:
+        raise AssertionError("/predict answered %d: %s" % (status,
+                                                         body[:300]))
+    got = json.loads(body)
+    log("  /predict on the reloaded caption module: %s" % got["captions"])
+    if got["captions"] != direct or "topk" in got:
+        raise AssertionError("served captions %s differ from a direct "
+                             "call's %s" % (got["captions"], direct))
+    results["caption_served"] = got["captions"]
 
 
 # ---------------------------------------------------------------- main
@@ -908,6 +1325,11 @@ def main(argv=None):
     del model, params, processor
     torch.cuda.empty_cache()
     phase_train(results)
+    torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    phase_caption(results)
+    results["caption_phase_s"] = time.monotonic() - t0
+    log("  phase 6 took %.1f s" % results["caption_phase_s"])
 
     launches = dict(results["main_path_launches"],
                     lrn_bwd=results["train_launches"]["lrn_bwd"],

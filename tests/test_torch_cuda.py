@@ -220,3 +220,128 @@ def test_bare_wrappers_refuse_tensors_that_need_a_gradient(gen):
     h, c = LSTMStepFunction.apply(*args)
     (h.sum() + c.sum()).backward()
     assert all(a.grad is not None for a in args)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [64, 256])
+def test_lstm_step_kernel_matches_plain_at_decode_shapes(gen, batch):
+    """The caption decode's shapes: H = 512 at 64 rows (greedy) and 256
+    rows (beam-4)."""
+    H = 512
+    args = [torch.randn(s, generator=gen, device="cuda") * 0.1
+            for s in ((batch, 4 * H), (batch, H), (batch, H), (H, 4 * H),
+                      (4 * H,))]
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False    # a float32 reference
+    try:
+        want = lstm_mod.lstm_step_reference(*args)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    before = lstm_mod.lstm_step.launches
+    for got, ref in zip(lstm_mod.lstm_step(*args), want):
+        torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5)
+    assert lstm_mod.lstm_step.launches == before + 1
+
+
+def _decoder(seed=0, H=512, E=300, V=1000, items=2):
+    """A 1x512 caption decoder (lstm params, output FC, embeddings,
+    state-bias visual) on the CPU, drawn from a torch seed."""
+    from video_learning_tpu_torch.models import layers
+    from video_learning_tpu_torch.models import lstm
+    g = torch.Generator().manual_seed(seed)
+    return (lstm.init(g, E, H, 1), layers.fc_init(g, H, V),
+            torch.randn((V, E), generator=g),
+            torch.tanh(torch.randn((items, H), generator=g)))
+
+
+def _on(tree, device, requires_grad=False):
+    if isinstance(tree, dict):
+        return {k: _on(v, device, requires_grad) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_on(v, device, requires_grad) for v in tree]
+    return tree.to(device).requires_grad_(requires_grad)
+
+
+def _first_difference(a, b):
+    for i, (ra, rb) in enumerate(zip(a, b)):
+        diff = (ra != rb).nonzero()
+        if len(diff):
+            return i, int(diff[0])
+    return None
+
+
+@pytest.mark.cuda
+def test_greedy_decode_on_the_card_matches_the_cpu(gen):
+    """float32, TF32 off: tokens equal, except from a step whose CPU top-2
+    logit margin is below 1e-4 x max(1, max|logit|); logits up to that
+    step within 1e-3 x max(1, max|logit|).  The decode runs on live
+    parameters that require gradients (it runs under no_grad) and launches
+    one lstm_step kernel per step."""
+    from video_learning_tpu_torch.defs import defs
+    from video_learning_tpu_torch.models import lstm
+    params, out_fc, emb, visual = _decoder()
+    T, out = 20, {}
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for device in ("cuda", "cpu"):
+            before = lstm_mod.lstm_step.launches
+            ids, logits = lstm.greedy_decode(
+                _on(params, device, True), _on(out_fc, device, True),
+                visual.to(device), emb.to(device), 999, T, 512,
+                defs.rnn_visual_mode.state_bias,
+                return_type=defs.return_type.standard)
+            assert not logits.requires_grad
+            out[device] = (ids.cpu(), logits.cpu())
+            launched = lstm_mod.lstm_step.launches - before
+            assert launched == (T if device == "cuda" else 0)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    (ids_g, log_g), (ids_c, log_c) = out["cuda"], out["cpu"]
+    diff = _first_difference(ids_g, ids_c)
+    upto = T if diff is None else diff[1] + 1
+    scale = max(1.0, float(log_c.abs().max()))
+    torch.testing.assert_close(log_g[:, :upto], log_c[:, :upto], rtol=0,
+                               atol=1e-3 * scale)
+    if diff is not None:
+        top2 = log_c[diff[0], diff[1]].topk(2).values
+        assert float(top2[0] - top2[1]) < 1e-4 * scale
+
+
+@pytest.mark.cuda
+def test_beam_decode_on_the_card_matches_the_cpu(gen):
+    """Beam-4 in float32: tokens equal, except where the CPU's least gap
+    among its K + 1 best candidate scores, at a step up to the first
+    differing token, is below 1e-4 of max(1, |score|)."""
+    from video_learning_tpu_torch.defs import defs
+    from video_learning_tpu_torch.models import lstm
+    params, out_fc, emb, visual = _decoder(seed=1)
+    T, K, out, gaps = 20, 4, {}, []
+    top_k = lstm._top_k
+
+    def recording(x, k):
+        vals = torch.sort(x, dim=1, descending=True).values[:, :k + 1]
+        scale = vals.abs().max(dim=1).values.clamp(min=1.0)
+        gaps.append(((vals[:, :-1] - vals[:, 1:]).min(dim=1).values
+                     / scale).cpu())
+        return top_k(x, k)
+
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for device in ("cuda", "cpu"):
+            gaps.clear()
+            lstm._top_k = recording
+            try:
+                out[device] = lstm.beam_decode(
+                    _on(params, device), _on(out_fc, device),
+                    visual.to(device), emb.to(device), 999, 998, T, 512,
+                    defs.rnn_visual_mode.state_bias, beam_width=K).cpu()
+            finally:
+                lstm._top_k = top_k
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    diff = _first_difference(out["cuda"], out["cpu"])
+    if diff is not None:
+        i, t = diff
+        assert float(torch.stack(gaps, dim=1)[i, :t + 1].min()) < 1e-4

@@ -50,14 +50,16 @@ def test_no_jax_or_jax_package_imports():
 
 
 def test_training_slice_modules_are_checked():
-    """The training slice's modules are among the sources checked above
-    and import neither JAX, optax nor the JAX package."""
+    """The training and captioning slices' modules are among the sources
+    checked above and import neither JAX, optax nor the JAX package."""
     sources = {os.path.relpath(p, REPO) for p in _port_sources()}
     for rel in ("video_learning_tpu_torch/train.py",
                 "video_learning_tpu_torch/ops/conv1_dw.py",
                 "video_learning_tpu_torch/ops/lrn.py",
                 "video_learning_tpu_torch/ops/lstm_step.py",
-                "video_learning_tpu_torch/models/alexnet.py"):
+                "video_learning_tpu_torch/models/alexnet.py",
+                "video_learning_tpu_torch/data/captions.py",
+                "video_learning_tpu_torch/models/lstm.py"):
         assert rel in sources
         roots = {n.split(".")[0]
                  for n, _ in _imported_modules(os.path.join(REPO, rel))}

@@ -10,8 +10,12 @@ them directly (``flagship.py``) or from a serving artifact's model spec
 
 ``GeometryDataset`` / ``GeometryFeeder`` stand in for the data layer: a
 dataset described by its frame geometry and preprocessing chain alone,
-which is all the DAG and the device preprocessor need.
+which is all the DAG and the device preprocessor need, plus, for a
+captioning dataset, its vocabulary, word-embedding matrix and caption
+lengths (``CaptionOpts`` holds the run's decode options).
 """
+
+import numpy as np
 
 from video_learning_tpu_torch.defs import defs
 
@@ -62,6 +66,17 @@ class ValOpts:
     use_ema = False                 # evaluate the EMA weights
 
 
+class CaptionOpts:
+    """Caption decode options, with the JAX ``CaptionOpts`` defaults
+    (greedy "max" search; "beam" with ``beam_width`` beams and
+    ``length_norm`` as the length-normalisation exponent)."""
+    caption_search = defs.caption_search.max
+    eval_type = defs.eval_type.coco
+    caption_max_length = None
+    beam_width = 4
+    length_norm = 0.0
+
+
 class Settings:
     """Run settings the DAG reads."""
 
@@ -75,6 +90,7 @@ class Settings:
         self.phase = defs.phase.val
         self.train = None
         self.val = None
+        self.captioning = None      # CaptionOpts of a captioning run
         self.global_step = 0
         self.run_id = ""
         self.run_folder = None      # where the lr schedule file goes
@@ -88,17 +104,32 @@ class Settings:
 class GeometryDataset:
     """A dataset known by its geometry: frame shape, clips per video,
     frames per clip and (for device preprocessing) the imgproc chain over
-    raw frames of ``raw_image_shape``."""
+    raw frames of ``raw_image_shape``.  A captioning dataset also has a
+    ``vocabulary`` (list of tokens with BOS, EOS and UNK), an
+    ``embedding_matrix`` (V, E) in vocabulary order, the padded word-grid
+    length ``max_sequence_length`` (T) and the longest caption
+    ``max_caption_length`` (T - 1 unless given)."""
 
     def __init__(self, tag, image_shape, fpc=1, cpv=1, imgproc=None,
-                 raw_image_shape=None, mean_scalars=None):
+                 raw_image_shape=None, mean_scalars=None, vocabulary=None,
+                 embedding_matrix=None, max_sequence_length=None,
+                 max_caption_length=None):
         from video_learning_tpu_torch.data.imgproc import ImageProcessor
         self.tag = tag
         self.image_shape = tuple(int(s) for s in image_shape)
         self.clips_per_video = int(cpv)
         self.num_frames_per_clip = int(fpc)
-        self.embedding_matrix = None
-        self.vocabulary = None
+        self.vocabulary = list(vocabulary) if vocabulary is not None \
+            else None
+        self.embedding_matrix = (
+            np.asarray(embedding_matrix, np.float32)
+            if embedding_matrix is not None else None)
+        self.max_sequence_length = (int(max_sequence_length)
+                                    if max_sequence_length else None)
+        if max_caption_length is None and self.max_sequence_length:
+            max_caption_length = self.max_sequence_length - 1
+        self.max_caption_length = (int(max_caption_length)
+                                   if max_caption_length else None)
         self.imgproc = list(imgproc or [])
         self.raw_image_shape = (tuple(int(s) for s in raw_image_shape)
                                 if raw_image_shape else None)
@@ -115,13 +146,21 @@ class GeometryDataset:
     def get_image_shape(self):
         return self.image_shape
 
+    def get_embedding_dim(self):
+        return int(self.embedding_matrix.shape[1])
+
     def spec(self):
+        """JSON-able description; the embedding matrix is not in it (a
+        serving artifact stores it beside the parameters)."""
         return {"tag": self.tag, "image_shape": list(self.image_shape),
                 "fpc": self.num_frames_per_clip,
                 "cpv": self.clips_per_video, "imgproc": self.imgproc,
                 "raw_image_shape": (list(self.raw_image_shape)
                                     if self.raw_image_shape else None),
-                "mean_scalars": self.mean_scalars}
+                "mean_scalars": self.mean_scalars,
+                "vocabulary": self.vocabulary,
+                "max_sequence_length": self.max_sequence_length,
+                "max_caption_length": self.max_caption_length}
 
 
 class GeometryFeeder:

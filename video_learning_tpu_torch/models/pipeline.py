@@ -14,25 +14,33 @@ classification:
   late fusion aggregates per-frame logits after it,
 * classifier FC (dim-converting) or LSTM; a second pipeline input becomes
   the LSTM's initial state (encoder-decoder handoff);
-  ``fusion_method.state`` returns the final hidden state.
+  ``fusion_method.state`` returns the final hidden state,
+* the captioner: when a dataset carries an embedding matrix, the last
+  pipeline's LSTM becomes a captioner conditioned on the visual vector
+  (``_apply_captioner``): per-word logits over the padded word grid in
+  training, greedy or beam decoding with ``decode=True``.
 
 Parameter-tree names equal the JAX names (``frames/dcnn/conv1/w``,
-``clf/lstm/cells/0/w``, ``clf/output_fc/b``), so checkpoints move between
-the packages by name (``checkpoint.py``).  The captioner branch is not
-ported yet and raises.
+``clf/lstm/cells/0/w``, ``clf/state_fc/w``, ``clf/output_fc/b``), so
+checkpoints move between the packages by name (``checkpoint.py``).
 """
 
 import numpy as np
 import torch
 
 from video_learning_tpu_torch.defs import defs
+from video_learning_tpu_torch.models import lstm as lstm_mod
 from video_learning_tpu_torch.models import vectorizer
 from video_learning_tpu_torch.models.layers import (convert_dim_fc_apply,
                                                     convert_dim_fc_init,
-                                                    dropout)
+                                                    dropout, fc_init)
 from video_learning_tpu_torch.ops import fusion
 from video_learning_tpu_torch.utils import (debug, error, fold_in,
                                             resolve_device, warning)
+
+# the ``decode`` value with which ``apply`` stops at the captioner and
+# returns the decoder's arguments (``Model.decoder_inputs``)
+_DECODER_INPUTS = "decoder inputs"
 
 
 class _InputSource:
@@ -85,6 +93,7 @@ class Model:
         self.pipeline_meta = {}     # name -> dict(dim, cpv, fpc, shape)
         self.specs = []             # build order
         self.caption_dataset = None
+        self._embeddings = {}       # device -> the caption embedding matrix
         self._groups = {"regular": [], "modified": []}
         self._resolve()
 
@@ -122,6 +131,11 @@ class Model:
                                                 fpc, int(shp[-1])))
                     if dset.embedding_matrix is not None:
                         self.caption_dataset = dset
+                        if len(dset.vocabulary) != self.num_classes:
+                            error("Captioning requires num_classes == "
+                                  "vocabulary size (%d != %d)"
+                                  % (self.num_classes,
+                                     len(dset.vocabulary)))
                 debug("Resolved pipeline input [%s] for [%s]"
                       % (input_name, pname))
 
@@ -189,9 +203,6 @@ class Model:
 
     def _init_pipeline(self, generator, spec, device):
         net, name = spec["net"], spec["name"]
-        if spec["caption"]:
-            error("Captioning pipelines are not ported yet (pipeline [%s])"
-                  % name)
         p = {}
         in_dim, _, _ = self._fused_input_meta(spec)
         in_shape = spec["sources"][0].shape
@@ -212,18 +223,40 @@ class Model:
             if p["clf_fc"] is not None:
                 self._groups["modified"].append(name + "/clf_fc")
         elif net.classifier == defs.classifier.lstm:
-            from video_learning_tpu_torch.models import lstm as lstm_mod
             num_hidden, num_layers = net.lstm_params[:2]
-            p["lstm"] = lstm_mod.init(generator, dim, num_hidden, num_layers,
-                                      device=device)
+            lstm_in = dim
+            if spec["caption"]:
+                emb_dim = self.caption_dataset.get_embedding_dim()
+                mode = self._caption_mode(net)
+                if mode == defs.rnn_visual_mode.state_bias:
+                    # the visual vector becomes the initial state
+                    lstm_in = emb_dim
+                    p["state_fc"] = convert_dim_fc_init(generator, dim,
+                                                        num_hidden, device)
+                elif mode == defs.rnn_visual_mode.input_concat:
+                    lstm_in = emb_dim + dim
+                elif mode == defs.rnn_visual_mode.input_bias:
+                    # the visual vector is the first step's input
+                    lstm_in = emb_dim
+                    p["state_fc"] = convert_dim_fc_init(generator, dim,
+                                                        emb_dim, device)
+                if p.get("state_fc") is not None:
+                    self._groups["modified"].append(name + "/state_fc")
+            p["lstm"] = lstm_mod.init(generator, lstm_in, num_hidden,
+                                      num_layers, device=device)
             self._groups["modified"].append(name + "/lstm")
-            if len(spec["sources"]) > 1:
+            if len(spec["sources"]) > 1 and not spec["caption"]:
                 p["input_state_fc"] = convert_dim_fc_init(
                     generator, spec["sources"][1].dim, num_hidden, device)
                 if p["input_state_fc"] is not None:
                     self._groups["modified"].append(name + "/input_state_fc")
-            p["output_fc"] = convert_dim_fc_init(generator, num_hidden,
-                                                 self.num_classes, device)
+            if spec["caption"]:
+                # caption logits span the vocabulary: the FC always exists
+                p["output_fc"] = fc_init(generator, num_hidden,
+                                         self.num_classes, device=device)
+            else:
+                p["output_fc"] = convert_dim_fc_init(
+                    generator, num_hidden, self.num_classes, device)
             if p["output_fc"] is not None:
                 self._groups["modified"].append(name + "/output_fc")
         return p
@@ -234,10 +267,15 @@ class Model:
 
     # --------------------------------------------------------------- apply
     def apply(self, params, feed, train=False, dropout_generator=None,
-              conv1_dw="shifted"):
+              conv1_dw="shifted", decode=False):
         """Run the full DAG.  feed: {input_key: tensor or array}; arrays
-        move to the parameters' device.  Returns (num_items, num_classes)
-        float32 logits.  ``dropout_generator`` (a ``torch.Generator``)
+        move to the parameters' device.  Returns float32 logits,
+        (num_items, num_classes) for classification and (B*T,
+        num_classes) for caption training (the feed then also holds
+        ``caption_words`` and ``caption_lengths``), or with ``decode=True``
+        a captioner's (B, T) int32 word indices (greedy, or beam search
+        when ``settings.captioning`` asks for it).
+        ``dropout_generator`` (a ``torch.Generator``)
         seeds training dropout: pipeline i draws from a generator seeded
         with ``fold_in(its seed, i)``, so two same-shaped dropout sites in
         different pipelines never share a mask (JAX ``fold_in(rng, i)``).
@@ -254,12 +292,26 @@ class Model:
                 gen_i = torch.Generator().manual_seed(
                     fold_in(dropout_generator.initial_seed(), i))
             logits = self._apply_pipeline(params[spec["name"]], spec, feed,
-                                          outputs, train, gen_i, conv1_dw)
+                                          outputs, train, gen_i, conv1_dw,
+                                          decode)
+            if decode is _DECODER_INPUTS and spec["caption"]:
+                return logits
             outputs[spec["name"]] = logits
         return logits
 
+    def decoder_inputs(self, params, feed):
+        """The keyword arguments ``apply(decode=True)`` gives
+        ``greedy_decode`` for ``feed`` (``beam_decode`` takes them with
+        ``eos_index``): the captioner's LSTM and ``output_fc`` parameters,
+        its conditioning ``visual`` (the captioner pipeline's visual vector
+        through ``state_fc`` in the compute dtype with a float32 result;
+        input_concat has no ``state_fc``), the embedding matrix on the
+        parameters' device, BOS, T, the hidden width and the visual
+        mode."""
+        return self.apply(params, feed, decode=_DECODER_INPUTS)
+
     def _apply_pipeline(self, p, spec, feed, outputs, train,
-                        dropout_generator, conv1_dw):
+                        dropout_generator, conv1_dw, decode):
         net, name = spec["net"], spec["name"]
         inputs, dims, fpcs, cpvs = [], [], [], []
         for src in spec["sources"]:
@@ -302,8 +354,8 @@ class Model:
                                           self.compute_dtype)
         elif net.classifier == defs.classifier.lstm:
             if spec["caption"]:
-                error("Captioning pipelines are not ported yet (pipeline "
-                      "[%s])" % name)
+                return self._apply_captioner(p, spec, x, feed, train,
+                                             dropout_generator, decode)
             num_hidden, num_layers, lstm_fusion = net.lstm_params[:3]
             init_state = None
             if len(inputs) > 1:
@@ -333,6 +385,90 @@ class Model:
             logits = fusion.aggregate_clip_vectors(
                 logits, self.num_classes, fpc, fusion_method)
         return logits
+
+    # ----------------------------------------------------------- captioner
+    @staticmethod
+    def _caption_mode(net):
+        if len(net.lstm_params) > 3:
+            return net.lstm_params[3]
+        return defs.rnn_visual_mode.state_bias
+
+    def _embedding_matrix(self, device):
+        """The caption dataset's embedding matrix as a float32 tensor on
+        ``device``, copied there once."""
+        key = str(device)
+        if key not in self._embeddings:
+            self._embeddings[key] = torch.as_tensor(
+                self.caption_dataset.embedding_matrix,
+                dtype=torch.float32).to(device)
+        return self._embeddings[key]
+
+    def _apply_captioner(self, p, spec, visual, feed, train,
+                         dropout_generator, decode):
+        """Caption branch.  Training emits per-word logits over the padded
+        (B, T) word grid; decoding runs a batched greedy or beam feedback
+        search.  Visual conditioning modes: state_bias (the visual vector
+        as every layer's initial (c, h)), input_concat (the visual vector
+        concatenated to each step's word input), input_bias (the visual
+        vector fed as an extra first step).  ``state_fc`` runs in the
+        compute dtype with a float32 result; decoding runs in float32;
+        training projects and applies ``output_fc`` in the compute
+        dtype."""
+        net = spec["net"]
+        num_hidden = net.lstm_params[0]
+        mode = self._caption_mode(net)
+        dset = self.caption_dataset
+        T = dset.max_sequence_length
+        visual = convert_dim_fc_apply(p.get("state_fc"), visual,
+                                      self.compute_dtype)
+        if decode:
+            args = dict(params=p["lstm"], out_fc_params=p["output_fc"],
+                        visual=visual,
+                        embedding_matrix=self._embedding_matrix(
+                            visual.device),
+                        bos_index=dset.vocabulary.index("BOS"),
+                        sequence_len=T, num_hidden=num_hidden,
+                        visual_mode=mode)
+            if decode is _DECODER_INPUTS:
+                return args
+            cap_opts = self.settings.captioning
+            if cap_opts is not None and \
+                    cap_opts.caption_search == defs.caption_search.beam:
+                return lstm_mod.beam_decode(
+                    eos_index=dset.vocabulary.index("EOS"),
+                    beam_width=cap_opts.beam_width,
+                    length_norm=cap_opts.length_norm, **args)
+            return lstm_mod.greedy_decode(**args)
+
+        words = feed["caption_words"]          # (B*T, E)
+        lengths = feed["caption_lengths"]      # (B,) input lengths (1+len)
+        E = words.shape[-1]
+        if mode == defs.rnn_visual_mode.state_bias:
+            seq_out, _ = lstm_mod.evaluate_sequence(
+                p["lstm"], words, num_hidden, T, lengths=lengths,
+                init_state=visual, compute_dtype=self.compute_dtype)
+        elif mode == defs.rnn_visual_mode.input_concat:
+            grid = words.reshape(-1, T, E)
+            vis = visual[:, None, :].expand(grid.shape[0], T,
+                                            visual.shape[-1])
+            combo = torch.cat([grid, vis.to(grid.dtype)], dim=-1)
+            seq_out, _ = lstm_mod.evaluate_sequence(
+                p["lstm"], combo.reshape(-1, combo.shape[-1]), num_hidden,
+                T, lengths=lengths, compute_dtype=self.compute_dtype)
+        elif mode == defs.rnn_visual_mode.input_bias:
+            grid = words.reshape(-1, T, E)
+            combo = torch.cat([visual[:, None, :].to(grid.dtype), grid],
+                              dim=1)
+            seq_out, _ = lstm_mod.evaluate_sequence(
+                p["lstm"], combo.reshape(-1, E), num_hidden, T + 1,
+                lengths=lengths + 1, compute_dtype=self.compute_dtype)
+            seq_out = seq_out[:, 1:, :]     # drop the visual step's output
+        else:
+            error("Unknown rnn visual mode [%s]" % mode)
+        out = seq_out.reshape(-1, num_hidden)
+        if train:
+            out = dropout(dropout_generator, out, self.settings.get_dropout())
+        return convert_dim_fc_apply(p["output_fc"], out, self.compute_dtype)
 
     # ------------------------------------------------------------- helpers
     def visual_sources(self):

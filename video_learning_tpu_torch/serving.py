@@ -14,10 +14,18 @@ module's static geometry (``batch_items``) and the padding rows dropped
 from the output, as the JAX artifact does, so a row's logits do not
 depend on what else shares its call.
 
+A captioner's module decodes: it returns (B, T) int32 word indices,
+its meta's output is ``{"kind": "token_ids", "vocabulary": [...],
+"max_caption_length": ..., "caption_search": ...}`` as in the JAX
+artifact, and ``captions`` / ``captions_from_ids`` turn rows into
+strings cut at the first EOS.
+
 The artifact is a zip of ``meta.json`` (the JAX meta keys, plus the
-model spec that rebuilds the DAG) and ``params.npz`` (JAX flat names and
-layouts, so the artifact is also a checkpoint for either package).
-Bucketed batches, multi-device export and int8 are not ported yet.
+model spec that rebuilds the DAG, caption options included),
+``params.npz`` (JAX flat names and layouts, so the artifact is also a
+checkpoint for either package) and, for a captioner, ``embeddings.npz``
+(each caption dataset's embedding matrix by dataset tag).  Bucketed
+batches, multi-device export and int8 are not ported yet.
 """
 
 import io
@@ -29,9 +37,11 @@ import torch
 
 from video_learning_tpu_torch.checkpoint import (from_jax_flat, to_jax_flat,
                                                  unflatten_tree)
-from video_learning_tpu_torch.config import (NETWORK_FIELDS, GeometryDataset,
+from video_learning_tpu_torch.config import (NETWORK_FIELDS, CaptionOpts,
+                                             GeometryDataset,
                                              GeometryFeeder, Network,
                                              Settings, ValOpts)
+from video_learning_tpu_torch.data.captions import trim_at_eos
 from video_learning_tpu_torch.models.pipeline import Model
 from video_learning_tpu_torch.ops.preprocess import (make_preprocessor,
                                                      supports_device_path)
@@ -40,13 +50,20 @@ from video_learning_tpu_torch.utils import error, resolve_device
 FORMAT = "vlt-torch-1"
 _META_NAME = "meta.json"
 _PARAMS_NAME = "params.npz"
+_EMBEDDINGS_NAME = "embeddings.npz"
+_CAPTION_FIELDS = ("caption_search", "eval_type", "caption_max_length",
+                   "beam_width", "length_norm")
 _TORCH_DTYPES = {"uint8": torch.uint8, "int32": torch.int32,
                  "float32": torch.float32}
 
 
 def model_spec(settings):
-    """JSON-able description of the DAG and its datasets' geometry."""
+    """JSON-able description of the DAG, its datasets' geometry and
+    vocabularies, and the caption options."""
+    cap = settings.captioning
     return {
+        "captioning": (None if cap is None else
+                       {f: getattr(cap, f) for f in _CAPTION_FIELDS}),
         "num_classes": int(settings.num_classes),
         "compute_dtype": str(settings.compute_dtype),
         "pipeline_names": list(settings.pipeline_names),
@@ -57,7 +74,11 @@ def model_spec(settings):
     }
 
 
-def settings_from_spec(spec):
+def settings_from_spec(spec, embedding_matrices=None):
+    """Settings rebuilt from ``model_spec``'s output;
+    ``embedding_matrices``: {dataset tag: (V, E) array} of the caption
+    datasets."""
+    embedding_matrices = embedding_matrices or {}
     s = Settings()
     s.num_classes = int(spec["num_classes"])
     s.compute_dtype = spec["compute_dtype"]
@@ -73,8 +94,18 @@ def settings_from_spec(spec):
         [GeometryDataset(d["tag"], d["image_shape"], fpc=d["fpc"],
                          cpv=d["cpv"], imgproc=d["imgproc"],
                          raw_image_shape=d["raw_image_shape"],
-                         mean_scalars=d["mean_scalars"])
+                         mean_scalars=d["mean_scalars"],
+                         vocabulary=d.get("vocabulary"),
+                         embedding_matrix=embedding_matrices.get(d["tag"]),
+                         max_sequence_length=d.get("max_sequence_length"),
+                         max_caption_length=d.get("max_caption_length"))
          for d in spec["datasets"]])
+    if spec.get("captioning") is not None:
+        s.captioning = CaptionOpts()
+        for field, value in spec["captioning"].items():
+            if field not in _CAPTION_FIELDS:
+                error("Unknown captioning field [%s] in artifact" % field)
+            setattr(s.captioning, field, value)
     s.val = ValOpts()
     return s
 
@@ -119,10 +150,20 @@ class ServingModule:
                                "shape": [rows] + list(src.shape),
                                "dtype": "float32"})
         num_classes = int(model.num_classes)
+        dset = model.caption_dataset
+        if dset is not None:
+            cap = model.settings.captioning
+            output = {"kind": "token_ids",
+                      "vocabulary": list(dset.vocabulary),
+                      "max_caption_length": int(dset.max_caption_length),
+                      "caption_search": (str(cap.caption_search)
+                                         if cap else "max")}
+        else:
+            output = {"kind": "logits", "num_classes": num_classes}
         self.meta = {
             "format": FORMAT,
             "inputs": inputs,
-            "output": {"kind": "logits", "num_classes": num_classes},
+            "output": output,
             "batch_items": self.batch_items,
             "buckets": [self.batch_items],
             "num_classes": num_classes,
@@ -140,8 +181,9 @@ class ServingModule:
         return a.to(device=self.device, dtype=dtype)
 
     def __call__(self, *arrays):
-        """Logits (float32 numpy) for the items in ``arrays``; each array
-        is numpy or a tensor, with a leading dim up to the static one."""
+        """Logits (float32 numpy), or a captioner's (items, T) int32 word
+        indices, for the items in ``arrays``; each array is numpy or a
+        tensor, with a leading dim up to the static one."""
         ins = self.meta["inputs"]
         if len(arrays) != len(ins):
             error("Serving module takes %d inputs %s; got %d"
@@ -168,11 +210,36 @@ class ServingModule:
         with torch.inference_mode():
             for key, pre in self._pre.items():
                 feed[key] = pre(feed[key], feed.pop(key + "/proc_params"))
-            out = self.model.apply(self.params, feed, train=False)
-            out = out.to(torch.float32).cpu().numpy()
+            if self.model.caption_dataset is not None:
+                out = self.model.apply(self.params, feed, train=False,
+                                       decode=True)
+                out = out.to(torch.int32).cpu().numpy()
+            else:
+                out = self.model.apply(self.params, feed, train=False)
+                out = out.to(torch.float32).cpu().numpy()
         if frac < 1:
             out = out[:max(int(round(out.shape[0] * frac)), 1)]
         return out
+
+    def captions_from_ids(self, rows):
+        """Decoded (B, T) word-index rows -> caption strings: each row cut
+        at its first EOS and at ``max_caption_length`` words, the words
+        joined by spaces (" " for an empty caption)."""
+        out = self.meta["output"]
+        if out.get("kind") != "token_ids":
+            error("Not a caption module (output kind %r)" % out.get("kind"))
+        vocab = out["vocabulary"]
+        cap = int(out["max_caption_length"])
+        texts = []
+        for row in np.asarray(rows):
+            words = [vocab[i] for i in trim_at_eos(row, vocab, cap)]
+            texts.append(" ".join(words) if words else " ")
+        return texts
+
+    def captions(self, *arrays):
+        """A captioner's decode of ``arrays`` as caption strings, one per
+        item."""
+        return self.captions_from_ids(self(*arrays))
 
     def warmup(self):
         """Run zeros through the full static batch; returns the output."""
@@ -184,9 +251,16 @@ class ServingModule:
         layouts)."""
         buf = io.BytesIO()
         np.savez(buf, **to_jax_flat(self.params))
+        embeddings = {d.tag: d.embedding_matrix
+                      for d in self.model.settings.feeder.datasets
+                      if d.embedding_matrix is not None}
         with zipfile.ZipFile(path, "w", zipfile.ZIP_STORED) as z:
             z.writestr(_META_NAME, json.dumps(self.meta, indent=1))
             z.writestr(_PARAMS_NAME, buf.getvalue())
+            if embeddings:
+                emb = io.BytesIO()
+                np.savez(emb, **embeddings)
+                z.writestr(_EMBEDDINGS_NAME, emb.getvalue())
 
 
 def load(path, device="cuda"):
@@ -197,10 +271,15 @@ def load(path, device="cuda"):
         with np.load(io.BytesIO(z.read(_PARAMS_NAME)),
                      allow_pickle=False) as npz:
             flat = {k: npz[k] for k in npz.files}
+        embeddings = {}
+        if _EMBEDDINGS_NAME in z.namelist():
+            with np.load(io.BytesIO(z.read(_EMBEDDINGS_NAME)),
+                         allow_pickle=False) as npz:
+                embeddings = {k: npz[k] for k in npz.files}
     if meta.get("format") != FORMAT:
         error("%s is not a %s serving artifact (format %r)"
               % (path, FORMAT, meta.get("format")))
-    model = Model(settings_from_spec(meta["model"]))
+    model = Model(settings_from_spec(meta["model"], embeddings))
     module = ServingModule(model, unflatten_tree(from_jax_flat(flat, device)),
                            batch_items=meta["batch_items"], device=device)
     if module.meta["inputs"] != meta["inputs"]:

@@ -25,6 +25,8 @@ Endpoints:
                  {"inputs": [nested-list, ...]} (positional), optional
                  "topk": N -> per-item {"class", "prob"} lists
                  (softmax over the logits; --classes names them).
+                 A captioner's module answers its (items, T) word ids
+                 and "captions", one string per item (never "topk").
       NPZ body (content-type application/x-npz or octet-stream): numpy
                  .npz keyed by input name (or arr_0, arr_1, ...);
                  respond JSON, or .npz with ?format=npz.
@@ -312,7 +314,12 @@ def make_handler(batcher, idx2name=None):
         def _send(self, code, payload, ctype="application/json"):
             if isinstance(payload, (dict, list)):
                 payload = json.dumps(payload).encode("utf-8")
-            self._last_status = code
+            if self.command == "POST":
+                # counted before the answer leaves, so that a client which
+                # reads /metrics next finds its own request there
+                batcher.stats.request(code, time.monotonic() - self._t0,
+                                      self._predict_items)
+                self._counted = True
             self.send_response(code)
             self.send_header("Content-Type", ctype)
             self.send_header("Content-Length", str(len(payload)))
@@ -335,15 +342,14 @@ def make_handler(batcher, idx2name=None):
                 self._fail(404, "unknown path %s" % path)
 
         def do_POST(self):
-            t0 = time.monotonic()
-            self._last_status = 500
+            self._t0 = time.monotonic()
+            self._counted = False
             self._predict_items = 0
             try:
                 self._predict()
             finally:
-                batcher.stats.request(self._last_status,
-                                      time.monotonic() - t0,
-                                      self._predict_items)
+                if not self._counted:       # failed before answering
+                    batcher.stats.request(500, time.monotonic() - self._t0)
 
         def _predict(self):
             path, _, query = self.path.partition("?")
@@ -394,7 +400,11 @@ def make_handler(batcher, idx2name=None):
                 np.savez(buf, outputs=out)
                 return self._send(200, buf.getvalue(), "application/x-npz")
             doc = {"outputs": np.asarray(out).tolist()}
-            if topk:
+            kind = module.meta["output"].get("kind", "logits")
+            if kind == "token_ids":
+                # a captioner: the rows as caption strings
+                doc["captions"] = module.captions_from_ids(out)
+            if topk and kind == "logits":
                 probs = _softmax(out)
                 k = min(topk, probs.shape[-1])
                 order = np.argsort(-probs, axis=-1)[:, :k]
