@@ -47,6 +47,26 @@ Phases (each raises on failure; nothing is caught and passed over):
    and one /predict to a served, saved and reloaded caption module
    answers the captions of a direct call.  Phase 2 also holds lstm_step
    at the decode shapes (64 and 256 rows of 512).
+7. int8 (w8a8) serving at the width of phase 3, as the JAX ``bench.py
+   --eval --int8`` runs it: bf16, int8 and int8_static (calibrated on 32
+   clips) serving modules with buckets of 1, 32 and 128 clips.  With the
+   plain versions locked out one forward of 1 or 32 clips launches
+   exactly 2 LRN, 32 lstm_step and 9 int8 GEMMs (``ops/int8_mm.py``,
+   cuBLASLt through ``torch._int_mm``) in both int8 modes; int8 logits
+   differ from bf16 by more than 0 and less than 50% of the bf16 logit
+   scale; one float32 clip agrees between the card and the CPU within
+   1e-3 x max(1, max|logit|); clips/s at 1, 32 and 128 clips for the
+   three modules and peak memory at 128; one profiled 32-clip forward of
+   bf16 and of int8 (idle share) and each int8 layer's quantize, im2col
+   and GEMM times (every GEMM equal to the exact product) against the
+   layer it replaces; an int8_static module with buckets [1, 8, 32]
+   saved, reloaded and served: a 1-item /predict runs at bucket 1 and
+   answers a direct call's rows, and the loopback selftest runs at 1 and
+   8 items per request; a greedy int8 caption decode of 64 items
+   launches 2 LRN, 20 lstm_step and 9 int8 GEMMs, is timed beside the
+   bf16 one, and 2 items in float32 decode the same tokens on the card
+   and the CPU (phase 6's tie rule).  Which shapes ``torch._int_mm``
+   itself refuses on the card is printed.
 
 The line before the last lists every ported kernel as JSON (launches per
 serving forward for lrn and lstm_step, per training step for the
@@ -76,9 +96,11 @@ from video_learning_tpu_torch.defs import defs
 from video_learning_tpu_torch.flagship import (SERVING_IMGPROC, SERVING_MEAN,
                                                caption_feed,
                                                caption_flagship, flagship)
+from video_learning_tpu_torch.models import alexnet, layers
 from video_learning_tpu_torch.models import lstm as decode_mod
 from video_learning_tpu_torch.ops import _build
 from video_learning_tpu_torch.ops import conv1_dw as conv1_mod
+from video_learning_tpu_torch.ops import int8_mm as int8_mod
 from video_learning_tpu_torch.ops import lrn as lrn_mod
 from video_learning_tpu_torch.ops import lstm_step as lstm_mod
 from video_learning_tpu_torch.ops.preprocess import make_preprocessor
@@ -91,6 +113,7 @@ from video_learning_tpu_torch.train import Train
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
 PEAK_BF16_OPS_PER_S = 989e12
+PEAK_INT8_OPS_PER_S = 1979e12
 
 SERVE_CLIPS = 32        # clips per timed serving forward
 FPC, IMAGE, RAW_HW, CLASSES, HIDDEN, LAYERS = 16, 227, (240, 320), 101, 256, 2
@@ -98,6 +121,12 @@ LRN_SITES = ((57, 57, 96), (28, 28, 256))   # conv1 and conv2 at 227x227
 TRAIN_CLIPS = 128       # clips per training step (bench.py's batch)
 CAPTION_ITEMS = 64      # captions per decode / training step (bench.py)
 BEAM = 4                # beam width of the beam-search decode
+INT8_MODES = ("int8", "int8_static")
+INT8_CLIPS = (1, 32, 128)   # clips per timed forward, and the buckets
+INT8_CALIB_CLIPS = 32       # clips of the int8_static calibration batch
+# int8 GEMMs of a forward to fc7: conv2 x2 groups, conv3, conv4 x2,
+# conv5 x2, fc6, fc7
+INT8_MM_PER_FORWARD = 9
 
 
 def log(msg):
@@ -425,11 +454,14 @@ def phase_kernels(clips):
 _PLAIN = ((lrn_mod, "lrn_reference"), (lrn_mod, "lrn_backward_reference"),
           (lstm_mod, "lstm_step_reference"),
           (conv1_mod, "conv1_dw_reference"),
-          (conv1_mod, "conv1_dw_shifted_reference"))
-# each kernel wrapper, by the name its count goes under
+          (conv1_mod, "conv1_dw_shifted_reference"),
+          (int8_mod, "int8_mm_reference"))
+# each kernel wrapper (and the int8 GEMM's), by the name its count goes
+# under
 _WRAPPERS = {"lrn": lrn_mod.lrn, "lrn_bwd": lrn_mod.lrn_backward,
              "lstm_step": lstm_mod.lstm_step, "conv1_dw": conv1_mod.conv1_dw,
-             "conv1_dw_shifted": conv1_mod.conv1_dw_shifted}
+             "conv1_dw_shifted": conv1_mod.conv1_dw_shifted,
+             "int8_mm": int8_mod.int8_mm}
 
 
 class _PlainLockedOut:
@@ -903,9 +935,9 @@ def contiguous_copies(prof, shapes):
 
 
 # ------------------------------------------------------------- phase 6
-def caption_frames(processor, items, seed, device):
-    """Raw uint8 frames made on ``device`` from a seed, and the host-drawn
-    crop/mirror parameters there too."""
+def device_frames(processor, items, seed, device):
+    """``items`` raw uint8 frames made on ``device`` from a seed, and the
+    host-drawn crop/mirror parameters there too."""
     gen = torch.Generator(device=device).manual_seed(seed)
     frames = torch.randint(0, 256, (items,) + RAW_HW + (3,), generator=gen,
                            device=device, dtype=torch.uint8)
@@ -968,7 +1000,7 @@ def caption_card_vs_cpu(params_cpu, results):
                                        compute_dtype="float32")
     dset = model.caption_dataset
     eos = dset.vocabulary.index("EOS")
-    frames, prm = caption_frames(dset.processor, 2, 11, "cpu")
+    frames, prm = device_frames(dset.processor, 2, 11, "cpu")
     out = {}
     for device in ("cuda", "cpu"):
         params = serving._to_device(params_cpu, device)
@@ -1085,7 +1117,7 @@ def phase_caption(results):
     log("  init (torch.Generator seed 0): %.1f s" % (time.monotonic() - t0))
     pre = make_preprocessor(dset.processor, out_dtype=model.compute_dtype,
                             device="cuda")
-    frames, prm = caption_frames(dset.processor, CAPTION_ITEMS, 0, "cuda")
+    frames, prm = device_frames(dset.processor, CAPTION_ITEMS, 0, "cuda")
 
     def decode(n=CAPTION_ITEMS):
         return model.apply(params, {"frames_main_input":
@@ -1186,7 +1218,7 @@ def caption_train_feed(settings, model, seed, device):
     feed = {k: torch.from_numpy(v).to(device) for k, v in
             caption_feed(settings, model, seed).items()
             if k != "frames_main_input"}
-    frames, prm = caption_frames(model.caption_dataset.processor,
+    frames, prm = device_frames(model.caption_dataset.processor,
                                  settings.train.batch_size, seed, device)
     feed["frames_main_input"] = frames
     feed["frames_main_input/proc_params"] = prm
@@ -1238,7 +1270,7 @@ def phase_caption_serve(model, params, dset, results):
         serving.ServingModule(model, params, batch_items=8,
                               device="cuda").save(path)
         module = serving.load(path, device="cuda")
-    frames, prm = caption_frames(dset.processor, 2, 21, "cpu")
+    frames, prm = device_frames(dset.processor, 2, 21, "cpu")
     frames, prm = frames.numpy(), prm.numpy()
     direct = module.captions_from_ids(module(frames, prm))
     started = threading.Event()
@@ -1275,6 +1307,517 @@ def phase_caption_serve(model, params, dset, results):
         raise AssertionError("served captions %s differ from a direct "
                              "call's %s" % (got["captions"], direct))
     results["caption_served"] = got["captions"]
+
+
+# ------------------------------------------------------------- phase 7
+INT8_COUNTED = ("lrn", "lstm_step", "int8_mm")
+
+
+def locked_counts(fn, want, what):
+    """Run ``fn`` once with the plain versions locked out; its launches of
+    the LRN, lstm_step and int8 GEMM wrappers must be ``want``."""
+    reset_counts()
+    with _PlainLockedOut():
+        out = fn()
+        torch.cuda.synchronize()
+    launched = counts(INT8_COUNTED)
+    log("  %s launched %s" % (what, launched))
+    if launched != want:
+        raise AssertionError("%s launched %s, expected %s"
+                             % (what, launched, want))
+    return out, launched
+
+
+def int_mm_refusals():
+    """Which of the shapes the int8 serving path meets torch._int_mm
+    itself refuses on the card (the reason ops/int8_mm.py pads)."""
+    found = {}
+    for what, m, k, n in (("16 rows", 16, 64, 64), ("K 20", 32, 20, 64),
+                          ("N 101", 32, 64, 101), ("17 rows", 17, 64, 64),
+                          ("24 rows", 24, 64, 64), ("32 rows", 32, 64, 64),
+                          ("17 x 9216 x 4096", 17, 9216, 4096),
+                          ("729 x 1200 x 128", 729, 1200, 128),
+                          ("736 x 1200 x 128", 736, 1200, 128)):
+        a = torch.ones((m, k), dtype=torch.int8, device="cuda")
+        b = torch.ones((k, n), dtype=torch.int8, device="cuda")
+        try:
+            torch._int_mm(a, b)
+            torch.cuda.synchronize()
+            found[what] = "taken"
+        except RuntimeError as e:      # recorded: the check under test
+            found[what] = "refused: %s" % str(e).splitlines()[0][:80]
+    log("  torch._int_mm on the card: %s" % found)
+    return found
+
+
+def int8_layer_table(dcnn, x, results):
+    """Each int8 layer of a forward of x (dynamic scales) against the
+    layer it replaces: the activation quantize, the im2col copies and the
+    int8 GEMMs (each GEMM held to the plain exact product), the whole
+    int8 layer, and the bf16 cuDNN conv / float32-accumulated fc of the
+    bf16 forward; device ms from CUDA events around back-to-back calls,
+    bounds = max(bytes / 3.35 TB/s, operations / 1979 TOPS)."""
+    q = alexnet.quantize_params(dcnn)
+    inputs = {}
+
+    def conv(name, inp):
+        inputs[name] = inp
+        strides, groups = alexnet._conv_stride_groups(name)
+        return layers.conv_apply_int8(q[name], inp, strides, "SAME",
+                                      groups=groups)
+
+    def fc(name, inp):
+        inputs[name] = inp
+        return layers.fc_apply_int8(q[name], inp)
+
+    with torch.inference_mode():
+        alexnet._forward(dcnn, x, "fc7", torch.bfloat16, "shifted", conv,
+                         fc)
+        rows = []
+        for name, inp in inputs.items():
+            rows.append(int8_layer_row(name, dcnn, q, inp))
+    total = {k: sum(r[k] for r in rows) for k in
+             ("quantize_ms", "im2col_ms", "gemm_ms", "int8_ms",
+              "replaced_ms", "gemm_bound_ms", "im2col_bound_ms",
+              "gemm_colmajor_b_ms")}
+    log("  int8 layers of a %d-frame forward (device ms; dynamic scales):"
+        % x.shape[0])
+    log("    %-6s %8s %8s %8s %8s %8s | %8s %8s %8s | %8s %s"
+        % ("layer", "quant", "im2col", "gemm", "int8", "bf16", "gemm_bd",
+           "im2c_bd", "gemm_err", "gemm_TN", "TN result"))
+    for r in rows + [dict(total, layer="total", gemm_max_abs_err=0,
+                          gemm_colmajor_b="")]:
+        log("    %-6s %8.3f %8.3f %8.3f %8.3f %8.3f | %8.3f %8.3f %8g | "
+            "%8.3f %s"
+            % (r["layer"], r["quantize_ms"], r["im2col_ms"], r["gemm_ms"],
+               r["int8_ms"], r["replaced_ms"], r["gemm_bound_ms"],
+               r["im2col_bound_ms"], r["gemm_max_abs_err"],
+               r["gemm_colmajor_b_ms"], r["gemm_colmajor_b"]))
+    if any(r["gemm_max_abs_err"] != 0 for r in rows):
+        raise AssertionError("an int8 GEMM differs from the exact product")
+    results["int8_layers"] = rows
+    results["int8_layers_total"] = total
+
+
+def int8_layer_row(name, dcnn, q, inp):
+    iters = 10
+    xq, _ = layers.quantize_sym(inp, None)
+    row = {"layer": name,
+           "quantize_ms": eager_ms(lambda: layers.quantize_sym(inp, None),
+                                   iters),
+           "im2col_ms": 0.0, "gemm_ms": 0.0, "gemm_bound_ms": 0.0,
+           "im2col_bound_ms": 0.0, "gemm_max_abs_err": 0}
+    if name.startswith("conv"):
+        strides, groups = alexnet._conv_stride_groups(name)
+        wq = q[name]["wq"]
+        cin_g, kh, kw = wq.shape[1:]
+        pads = (layers.same_pads(inp.shape[1], kh, 1),
+                layers.same_pads(inp.shape[2], kw, 1))
+        pairs = []
+        for g in range(groups):
+            chans = (g * cin_g, (g + 1) * cin_g)
+            row["im2col_ms"] += eager_ms(
+                lambda: layers.im2col_int8(xq, kh, kw, strides, pads, chans),
+                iters)
+            cols = layers.im2col_int8(xq, kh, kw, strides, pads, chans)[0]
+            row["im2col_bound_ms"] += bound_ms(
+                xq.numel() // groups + cols.numel(), 0)[0]
+            pairs.append((cols, layers.int8_weight_matrix(wq, groups, g)))
+        row["int8_ms"] = eager_ms(lambda: layers.conv_apply_int8(
+            q[name], inp, strides, "SAME", groups=groups), iters)
+        row["replaced_ms"] = eager_ms(lambda: layers.conv_apply(
+            dcnn[name], inp, strides, "SAME", groups=groups,
+            compute_dtype=torch.bfloat16), iters)
+        row["replaced"] = "cuDNN bf16 conv"
+    else:
+        pairs = [(xq, q[name]["wq"])]
+        row["int8_ms"] = eager_ms(lambda: layers.fc_apply_int8(q[name], inp),
+                                  iters)
+        row["replaced_ms"] = eager_ms(lambda: layers.fc_apply(
+            dcnn[name], inp, torch.bfloat16), iters)
+        row["replaced"] = "bf16-rounded float32 GEMM"
+    row["gemm_colmajor_b_ms"], row["gemm_colmajor_b"] = 0.0, "exact"
+    for a, b in pairs:
+        row["gemm_ms"] += eager_ms(lambda: int8_mod.int8_mm(a, b), iters)
+        # a probe for later work, not on the port's path: the same GEMM
+        # with B column-major (cuBLASLt's TN layout); recorded, not held
+        b_cm = b.t().contiguous().t()
+        try:
+            row["gemm_colmajor_b_ms"] += eager_ms(
+                lambda: torch._int_mm(a, b_cm), iters)
+            if not torch.equal(torch._int_mm(a, b_cm),
+                               int8_mod.int8_mm(a, b)):
+                row["gemm_colmajor_b"] = "differs"
+        except RuntimeError as e:       # recorded: a probe, not a check
+            row["gemm_colmajor_b"] = "refused: %s" % str(e)[:60]
+        m, k = a.shape
+        n = b.shape[1]
+        row["gemm_bound_ms"] += bound_ms(m * k + k * n + 4 * m * n,
+                                         2 * m * n * k,
+                                         PEAK_INT8_OPS_PER_S)[0]
+        err = (int8_mod.int8_mm(a, b) -
+               int8_mod.int8_mm_reference(a, b)).abs().max()
+        row["gemm_max_abs_err"] = max(row["gemm_max_abs_err"], int(err))
+    row["gemm_shapes"] = [[int(a.shape[0]), int(a.shape[1]),
+                           int(b.shape[1])] for a, b in pairs]
+    return row
+
+
+class _Quantizations:
+    """Records the int8 activations (xq, xs) that each int8 layer of a
+    forward computes, in call order; or, given such a record
+    (``forced``), makes each layer take the recorded ones in place of its
+    own and reports, per layer, the elements whose own rounding on the
+    recorded grid differs (flips) and how far the largest such input lay
+    from a rounding tie, in grid steps."""
+
+    def __init__(self, forced=None):
+        self.forced = forced
+        self.taken = []
+        self.report = []
+
+    def __enter__(self):
+        self.saved = layers._int8_input
+
+        def hook(params, x):
+            if self.forced is None:
+                xq, xs = self.saved(params, x)
+                self.taken.append((xq.cpu(), xs.cpu()))
+                return xq, xs
+            fq, fs = self.forced[len(self.report)]
+            t = x.to(torch.float32) / fs
+            flipped = torch.round(t).clamp(-127, 127).to(torch.int8) != fq
+            tie = (t - t.floor() - 0.5).abs()[flipped]
+            self.report.append({
+                "flips": int(flipped.sum()), "elements": fq.numel(),
+                "max_tie_distance": float(tie.max()) if tie.numel() else 0})
+            return fq, fs
+
+        layers._int8_input = hook
+        return self
+
+    def __exit__(self, *exc):
+        layers._int8_input = self.saved
+
+
+def forced_card_vs_cpu(run, what):
+    """``run(device)`` on the card, then on the CPU twice: as it is, and
+    with each int8 layer taking the card's int8 activations (the rounding
+    decisions) in place of its own.  A float32 rounding difference at
+    conv1 moves an int8 activation across a .5 step of its grid now and
+    then, and such a flip moves the logits by more than 1e-3 (the
+    unforced spread is printed).  So the card is held to the forced CPU
+    run, and every flip to a near tie: each input the CPU would round
+    otherwise lies within 1e-3 grid steps of a tie.  Returns (card,
+    forced CPU, unforced CPU) outputs as numpy, and the flip report."""
+    with _Quantizations() as card:
+        on_card = run("cuda")
+    with _Quantizations(card.taken) as forced:
+        on_cpu = run("cpu")
+    free = run("cpu")
+    flips = forced.report
+    log("  %s: flips per int8 layer on the card's grid (CPU input vs card "
+        "activation) %s, farthest from a tie %.3g steps"
+        % (what, [f["flips"] for f in flips],
+           max(f["max_tie_distance"] for f in flips)))
+    if len(flips) != len(card.taken) or \
+            not all(f["max_tie_distance"] < 1e-3 for f in flips):
+        raise AssertionError("%s: an int8 activation differs card vs CPU "
+                             "away from a rounding tie: %s" % (what, flips))
+    return on_card, on_cpu, free, flips
+
+
+def int8_card_vs_cpu(params_cpu, processor, results):
+    """One clip of float32 int8 and int8_static logits on the card and on
+    the CPU, from the same module (the static one with ranges calibrated
+    once, on the CPU), held by ``forced_card_vs_cpu``: the card within
+    1e-3 x max(1, max|logit|) of the CPU run that takes the card's int8
+    activations.  One clip is 16 rows into fc6, which the card's GEMM
+    takes only padded."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _, model32 = flagship(num_classes=CLASSES, fpc=FPC, image=IMAGE,
+                          lstm=(HIDDEN, LAYERS), raw_hw=RAW_HW,
+                          mean_scalars=SERVING_MEAN, imgproc=SERVING_IMGPROC,
+                          compute_dtype="float32")
+    frames, prm = device_frames(processor, FPC, 72, "cpu")
+    calib = device_frames(processor, 2 * FPC, 73, "cpu")
+    ranges = serving.ServingModule(
+        model32, params_cpu, batch_items=2, device="cpu",
+        quantize="int8_static", calib_feed=calib).meta["act_ranges"]
+    report = {}
+    for mode in INT8_MODES:
+        kw = dict(quantize=mode, act_ranges=ranges
+                  if mode == "int8_static" else None)
+        mods = {dev: serving.ServingModule(model32, params_cpu,
+                                           batch_items=1, device=dev, **kw)
+                for dev in ("cuda", "cpu")}
+        card, cpu, free, flips = forced_card_vs_cpu(
+            lambda dev: mods[dev](frames, prm), "float32 %s clip" % mode)
+        scale = max(1.0, float(np.abs(cpu).max()))
+        err = float(np.abs(card - cpu).max())
+        spread = float(np.abs(card - free).max())
+        log("  float32 %s clip, card vs CPU on the card's int8 activations: "
+            "max abs %.3g (tolerance %.3g = 1e-3 x max(1, max|logit|)); "
+            "card vs CPU on its own: %.3g" % (mode, err, 1e-3 * scale,
+                                              spread))
+        if not err <= 1e-3 * scale:
+            raise AssertionError("%s: card and CPU disagree: %.3g" % (mode,
+                                                                      err))
+        report[mode] = {"max_abs": err, "unforced_max_abs": spread,
+                        "flips": flips}
+    results["int8_fp32_card_vs_cpu"] = report
+
+
+def phase_int8(results):
+    log("phase 7: int8 serving at full width (%d classes, fpc %d, bf16 "
+        "conv1, w8a8 conv2..fc7, buckets %s)" % (CLASSES, FPC,
+                                                list(INT8_CLIPS)))
+    settings, model = flagship(num_classes=CLASSES, fpc=FPC, image=IMAGE,
+                               lstm=(HIDDEN, LAYERS), raw_hw=RAW_HW,
+                               mean_scalars=SERVING_MEAN,
+                               imgproc=SERVING_IMGPROC,
+                               compute_dtype="bfloat16")
+    processor = settings.feeder.datasets[0].processor
+    params_cpu = model.init_params(seed=0, device="cpu")
+    params = serving._to_device(params_cpu, "cuda")
+    results["int_mm_shape_checks"] = int_mm_refusals()
+    calib = device_frames(processor, INT8_CALIB_CLIPS * FPC, 70, "cuda")
+    frames, prm = device_frames(processor, max(INT8_CLIPS) * FPC, 71,
+                                "cuda")
+    t0 = time.monotonic()
+    modules = {mode: serving.ServingModule(
+        model, params, batch_items=list(INT8_CLIPS), device="cuda",
+        quantize=mode, calib_feed=calib if mode == "int8_static" else None)
+        for mode in (None,) + INT8_MODES}
+    log("  bf16, int8 and int8_static modules built in %.1f s; int8_static "
+        "ranges (calibrated on %d clips): %s"
+        % (time.monotonic() - t0, INT8_CALIB_CLIPS,
+           modules["int8_static"].meta["act_ranges"]))
+    results["int8_static_act_ranges"] = \
+        modules["int8_static"].meta["act_ranges"]
+
+    # launch counts with the plain versions locked out, at 1 clip (fc6
+    # takes 16 rows, padded) and at SERVE_CLIPS
+    want = {"lrn": 2, "lstm_step": FPC * LAYERS,
+            "int8_mm": INT8_MM_PER_FORWARD}
+    n32 = SERVE_CLIPS * FPC
+    bf16 = modules[None](frames[:n32], prm[:n32])
+    scale = float(np.abs(bf16).max())
+    launched, deltas = {}, {}
+    for mode in INT8_MODES:
+        mod = modules[mode]
+        for clips in (1, SERVE_CLIPS):
+            n = clips * FPC
+            out, launched[mode] = locked_counts(
+                lambda: mod(frames[:n], prm[:n]), want,
+                "one %s forward of %d clips" % (mode, clips))
+            if out.shape != (clips, CLASSES) or \
+                    not np.all(np.isfinite(out)):
+                raise AssertionError("%s logits %s" % (mode, out.shape))
+        # int8 against bf16 on the card: quantization did something, and
+        # not too much (the JAX multichip dryrun's check)
+        delta = float(np.abs(out - bf16).max())
+        log("  %s vs bf16, %d clips: max |delta logit| %.4g, bf16 logit "
+            "scale %.4g (need 0 < delta < 50%% of it)"
+            % (mode, SERVE_CLIPS, delta, scale))
+        if not 0 < delta < 0.5 * scale:
+            raise AssertionError("%s delta %.4g outside (0, %.4g)"
+                                 % (mode, delta, 0.5 * scale))
+        deltas[mode] = delta
+    results["int8_launches"] = launched
+    results["int8_vs_bf16_max_abs"] = deltas
+    results["int8_bf16_logit_scale"] = scale
+
+    int8_card_vs_cpu(params_cpu, processor, results)
+
+    # clips/s, inputs on the card; peak memory at the largest batch
+    rates, peaks = {}, {}
+    for mode in (None,) + INT8_MODES:
+        name = mode or "bf16"
+        mod = modules[mode]
+        for clips, reps in zip(INT8_CLIPS, (20, 10, 5)):
+            n = clips * FPC
+            sec = timed_s(lambda: mod(frames[:n], prm[:n]), reps)
+            rates["%s@%d" % (name, clips)] = clips / sec
+            log("  %-11s forward of %3d clips: %8.3f ms = %9.1f clips/s"
+                % (name, clips, sec * 1e3, clips / sec))
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        mod(frames, prm)
+        peaks[name] = {"peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                       "resident_gb": resident / 1e9}
+        log("  %-11s at %d clips: peak memory %.2f GB (%.2f GB resident "
+            "before the call)" % (name, max(INT8_CLIPS),
+                                  peaks[name]["peak_gb"],
+                                  peaks[name]["resident_gb"]))
+    results["int8_clips_per_s"] = rates
+    results["int8_peak_memory"] = peaks
+
+    # where the time goes at SERVE_CLIPS: kernels by name, the card's
+    # idle share, and each int8 layer against the layer it replaces
+    for mode in (None, "int8"):
+        mod = modules[mode]
+        name = mode or "bf16"
+        sec = SERVE_CLIPS / rates["%s@%d" % (name, SERVE_CLIPS)]
+        prof = {}
+        profile_rows("one %d-clip %s forward" % (SERVE_CLIPS, name),
+                     lambda: mod(frames[:n32], prm[:n32]), sec, prof, "p",
+                     top=14)
+        idle = 1.0 - prof["p_kernel_us_total"] / (sec * 1e6)
+        log("  the card is idle %.0f%% of a %d-clip %s forward"
+            % (100 * idle, SERVE_CLIPS, name))
+        results["int8_profile_" + name] = prof["p"]
+        results["int8_idle_share_" + name] = idle
+    pre = make_preprocessor(processor, out_dtype=torch.bfloat16,
+                            device="cuda")
+    int8_layer_table(params["frames"]["dcnn"], pre(frames[:n32], prm[:n32]),
+                     results)
+    del modules
+    torch.cuda.empty_cache()
+    phase_int8_serve(model, params, processor, calib, results)
+    del params
+    torch.cuda.empty_cache()
+    phase_int8_caption(results)
+
+
+def phase_int8_serve(model, params, processor, calib, results):
+    """An int8_static module with buckets [1, 8, 32] saved and reloaded;
+    a 1-item /predict runs at bucket 1 and answers a direct call's rows;
+    the loopback selftest at 1 and 8 items per request."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = tmp + "/int8_static.zip"
+        made = serving.ServingModule(model, params, batch_items=[1, 8, 32],
+                                     device="cuda", quantize="int8_static",
+                                     calib_feed=calib)
+        made.save(path)
+        module = serving.load(path, device="cuda")
+    if module.meta != made.meta:
+        raise AssertionError("reloaded meta differs")
+    frames, prm = device_frames(processor, FPC, 74, "cpu")
+    frames, prm = frames.numpy(), prm.numpy()
+    direct = module(frames, prm)
+    reload_err = float(np.abs(direct - made(frames, prm)).max())
+    if module.last_bucket != 1 or not reload_err <= 1e-3:
+        raise AssertionError("reloaded module: bucket %s, rows differ by "
+                             "%.3g" % (module.last_bucket, reload_err))
+    names = [s["name"] for s in module.meta["inputs"]]
+    started = threading.Event()
+    thread = threading.Thread(
+        target=serve_mod.serve, args=(module,),
+        kwargs=dict(port=0, window_ms=5.0, started=started,
+                    request_timeout_s=300), daemon=True)
+    thread.start()
+    if not started.wait(timeout=600):
+        raise AssertionError("int8 server did not start")
+    try:
+        out, dt = post_predict(started.addr, dict(zip(names, (frames, prm))))
+        calls = dict(started.batcher.stats.device_calls)
+        metrics = get(started.addr, "/metrics")
+    finally:
+        started.httpd.shutdown()
+        thread.join(timeout=120)
+    if thread.is_alive():
+        raise AssertionError("int8 server thread did not stop")
+    err = float(np.abs(out - direct).max())
+    log("  reloaded int8_static module (buckets %s): 1-item /predict %.1f "
+        "ms at buckets %s, rows vs a direct call max abs %.3g (reload vs "
+        "made %.3g)" % (module.meta["buckets"], dt * 1e3, calls, err,
+                        reload_err))
+    if calls != {1: 1} or 'vlx_device_calls_total{bucket="1"} 1' not in \
+            metrics or not err <= 1e-3:
+        raise AssertionError("1-item /predict: device calls %s, rows differ "
+                             "by %.3g" % (calls, err))
+    rows = serve_mod.selftest(module, item_counts=(1, 8), duration_s=1.5,
+                              concurrency=8, window_ms=3.0)
+    for r in rows:
+        log("  selftest %d items/request: %.1f requests/s, %.1f items/s, "
+            "p50 %.1f ms, p99 %.1f ms, %d errors"
+            % (r["items_per_request"], r["rps"], r["items_per_sec"],
+               r["p50_ms"], r["p99_ms"], r["errors"]))
+        if r["errors"] or not r["requests"]:
+            raise AssertionError("selftest row %s" % r)
+    results["int8_serve"] = {"predict_ms": dt * 1e3, "device_calls": calls,
+                             "rows_vs_direct_max_abs": err,
+                             "selftest": rows}
+
+
+def phase_int8_caption(results):
+    """The captioner's frame encoder in int8, the decode in float32: a
+    greedy decode of 64 items launches lrn 2, lstm_step T and the 9 int8
+    GEMMs with the plain versions locked out; int8 and bf16 greedy
+    captions/s at 64 items; 2 items in float32 card vs CPU."""
+    settings, model = caption_flagship(batch_size=CAPTION_ITEMS)
+    dset = model.caption_dataset
+    T, _ = caption_sizes(model)
+    params_cpu = model.init_params(seed=0, device="cpu")
+    params = serving._to_device(params_cpu, "cuda")
+    qparams = model.quantize_params(params)
+    pre = make_preprocessor(dset.processor, out_dtype=model.compute_dtype,
+                            device="cuda")
+    frames, prm = device_frames(dset.processor, CAPTION_ITEMS, 0, "cuda")
+
+    def decode(p, quantize, n=CAPTION_ITEMS):
+        return model.apply(p, {"frames_main_input": pre(frames[:n], prm[:n])},
+                           decode=True, quantize=quantize)
+
+    decode(qparams, "int8", 1)              # first call: lazy set-up
+    ids, launched = locked_counts(
+        lambda: decode(qparams, "int8"),
+        {"lrn": 2, "lstm_step": T, "int8_mm": INT8_MM_PER_FORWARD},
+        "one int8 greedy decode of %d items" % CAPTION_ITEMS)
+    ids = ids.cpu().numpy()
+    if ids.shape != (CAPTION_ITEMS, T) or ids.dtype != np.int32 or \
+            ids.min() < 0 or ids.max() >= len(dset.vocabulary):
+        raise AssertionError("int8 decoded ids %s %s" % (ids.shape,
+                                                         ids.dtype))
+    results["int8_caption_launches"] = launched
+    rates = {}
+    for name, p, quantize in (("bf16", params, None),
+                              ("int8", qparams, "int8")):
+        sec = timed_s(lambda: decode(p, quantize), 20)
+        rates[name] = CAPTION_ITEMS / sec
+        log("  %s greedy decode of %d items: %.2f ms = %.1f captions/s"
+            % (name, CAPTION_ITEMS, sec * 1e3, CAPTION_ITEMS / sec))
+    results["int8_caption_captions_per_s"] = rates
+    del params, qparams
+    torch.cuda.empty_cache()
+
+    settings, model = caption_flagship(batch_size=2, compute_dtype="float32")
+    frames, prm = device_frames(dset.processor, 2, 11, "cpu")
+
+    def run(device):
+        q = model.quantize_params(serving._to_device(params_cpu, device))
+        pre = make_preprocessor(dset.processor, out_dtype=torch.float32,
+                                device=device)
+        feed = {"frames_main_input": pre(frames.to(device), prm.to(device))}
+        ids = model.apply(q, feed, decode=True, quantize="int8")
+        _, logits = decode_mod.greedy_decode(
+            **model.decoder_inputs(q, feed, quantize="int8"),
+            return_type=defs.return_type.standard)
+        return ids.cpu().numpy(), logits.cpu().numpy()
+
+    (card, _), (cpu, c_logits), (free, _), flips = forced_card_vs_cpu(
+        run, "float32 int8 greedy decode of 2 items")
+    diff = first_difference(card, cpu)
+    top2 = np.sort(c_logits, axis=-1)[..., -2:]
+    margin = float((top2[..., 1] - top2[..., 0]).min())
+    log("  float32 int8 greedy decode of 2 items, card vs CPU on the card's "
+        "int8 activations: tokens %s; least CPU top-2 margin %.3g; on its "
+        "own: tokens %s"
+        % ("equal" if diff is None else
+           "differ first at item %d step %d" % diff, margin,
+           "equal" if first_difference(card, free) is None else "differ"))
+    if diff is not None:
+        i, t = diff
+        limit = 1e-4 * max(1.0, float(np.abs(c_logits[i, t]).max()))
+        if not top2[i, t, 1] - top2[i, t, 0] < limit:
+            raise AssertionError("int8 caption tokens differ at a decided "
+                                 "step")
+    results["int8_caption_fp32_card_vs_cpu"] = {
+        "first_difference": diff, "min_cpu_margin": margin,
+        "flips": flips}
 
 
 # ---------------------------------------------------------------- main
@@ -1330,6 +1873,11 @@ def main(argv=None):
     phase_caption(results)
     results["caption_phase_s"] = time.monotonic() - t0
     log("  phase 6 took %.1f s" % results["caption_phase_s"])
+    torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    phase_int8(results)
+    results["int8_phase_s"] = time.monotonic() - t0
+    log("  phase 7 took %.1f s" % results["int8_phase_s"])
 
     launches = dict(results["main_path_launches"],
                     lrn_bwd=results["train_launches"]["lrn_bwd"],

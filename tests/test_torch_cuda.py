@@ -345,3 +345,68 @@ def test_beam_decode_on_the_card_matches_the_cpu(gen):
     if diff is not None:
         i, t = diff
         assert float(torch.stack(gaps, dim=1)[i, :t + 1].min()) < 1e-4
+
+
+# the int8 GEMM at shapes the serving path gives it that torch._int_mm
+# takes only padded: fc6 of one 16-frame clip (16 rows), a one-item
+# caption encode (1 row), a 101-class head (N 101), a K and an N that are
+# not multiples of 8, and conv2's group GEMM of one clip
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(16, 9216, 4096), (1, 4096, 4096),
+                                   (16, 4096, 101), (5, 20, 10),
+                                   (11664, 1200, 128)])
+def test_int8_mm_matches_plain_with_padding(gen, m, k, n):
+    from video_learning_tpu_torch.ops import int8_mm as int8_mod
+    a = torch.randint(-127, 128, (m, k), generator=gen, device="cuda",
+                      dtype=torch.int8)
+    b = torch.randint(-127, 128, (k, n), generator=gen, device="cuda",
+                      dtype=torch.int8)
+    a[0], b[:, 0] = 127, 127
+    before = int8_mod.int8_mm.launches
+    out = int8_mod.int8_mm(a, b)
+    torch.cuda.synchronize()
+    assert int8_mod.int8_mm.launches == before + 1
+    assert out.dtype == torch.int32 and tuple(out.shape) == (m, n)
+    assert int(out[0, 0]) == k * 127 * 127
+    assert torch.equal(out, int8_mod.int8_mm_reference(a, b))
+
+
+@pytest.mark.cuda
+def test_int8_mm_launches_the_gemm_or_raises(gen, monkeypatch):
+    """On CUDA operands the wrapper never reaches the plain version, and
+    what the GEMM does not take raises: no float product, no CPU."""
+    from video_learning_tpu_torch.ops import int8_mm as int8_mod
+    from video_learning_tpu_torch.utils import FrameworkError
+
+    def forbidden(*args):
+        raise AssertionError("plain version reached from CUDA operands")
+
+    monkeypatch.setattr(int8_mod, "int8_mm_reference", forbidden)
+    a = torch.randint(-127, 128, (64, 64), generator=gen, device="cuda",
+                      dtype=torch.int8)
+    assert int8_mod.int8_mm(a, a).shape == (64, 64)
+    for bad in ((a.float(), a.float()), (a, a.cpu()), (a.t(), a),
+                (a, a[:, :32].t())):
+        with pytest.raises(FrameworkError):
+            int8_mod.int8_mm(*bad)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("groups,stride", [(1, 1), (2, 1), (1, 4)])
+def test_int8_conv_on_the_card_matches_the_cpu(gen, groups, stride):
+    """conv_apply_int8 on the card (int8 im2col, the int8 GEMM per group)
+    against the same call on the CPU: the int32 sums are exact."""
+    from video_learning_tpu_torch.models import layers
+    k = 11 if stride == 4 else 5
+    x = torch.randn((3, 27, 25, 96), generator=gen, device="cuda") * 3
+    w = layers.hwio_to_oihw(torch.randn((k, k, 96 // groups, 64),
+                                        generator=gen, device="cuda"))
+    b = torch.randn((64,), generator=gen, device="cuda")
+    args = ((stride, stride), "SAME")
+    out = layers.conv_apply_int8({"w": w, "b": b}, x, *args, groups=groups,
+                                 out_dtype=torch.float32)
+    ref = layers.conv_apply_int8({"w": w.cpu(), "b": b.cpu()}, x.cpu(),
+                                 *args, groups=groups,
+                                 out_dtype=torch.float32)
+    torch.testing.assert_close(out.cpu(), ref, rtol=1e-6,
+                               atol=1e-6 * float(ref.abs().max()))

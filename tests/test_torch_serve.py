@@ -22,6 +22,7 @@ from video_learning_tpu_torch import serving
 from video_learning_tpu_torch.flagship import (SERVING_MEAN, TRAIN_IMGPROC,
                                                flagship)
 from video_learning_tpu_torch.tools import serve as serve_mod
+from video_learning_tpu_torch.utils import FrameworkError
 
 FPC, RAW, CLASSES, ITEMS = 2, (72, 80), 5, 2
 
@@ -210,3 +211,142 @@ def test_http_endpoints(module, server):
 
     status, body = _request(addr, "GET", "/metrics")
     assert status == 200 and b'vlx_requests_total{status="400"} 1' in body
+
+
+# ------------------------------------------------- int8 modules and buckets
+@pytest.fixture(scope="module")
+def int8_modules():
+    """An int8 and an int8_static module of the tiny float32 flagship at
+    buckets [1, 2], the static one calibrated on two items."""
+    settings, model = _build()
+    params = model.init_params(seed=0, device="cpu")
+    calib = _inputs(settings.feeder.datasets[0].processor, ITEMS, 30)
+    return {mode: serving.ServingModule(
+        model, params, batch_items=[1, ITEMS], device="cpu", quantize=mode,
+        calib_feed=calib if mode == "int8_static" else None)
+        for mode in ("int8", "int8_static")}, settings, params
+
+
+@pytest.mark.parametrize("mode", ["int8", "int8_static"])
+def test_int8_round_trip_gives_the_same_bits(int8_modules, tmp_path, mode):
+    mods, settings, params = int8_modules
+    mod = mods[mode]
+    assert mod.meta["quantize"] == mode
+    assert mod.meta["buckets"] == [1, ITEMS]
+    assert mod.meta["batch_items"] == ITEMS
+    if mode == "int8_static":
+        ranges = mod.meta["act_ranges"]
+        assert sorted(ranges) == ["frames"]
+        assert sorted(ranges["frames"]) == ["conv2", "conv3", "conv4",
+                                            "conv5", "fc6", "fc7"]
+        assert all(isinstance(v, float) and v > 0
+                   for v in ranges["frames"].values())
+    else:
+        assert "act_ranges" not in mod.meta
+    path = str(tmp_path / ("%s.zip" % mode))
+    mod.save(path)
+    again = serving.load(path, device="cpu")
+    assert again.meta == mod.meta
+    frames, prm = _inputs(settings.feeder.datasets[0].processor, ITEMS, 31)
+    out = mod(frames, prm)
+    np.testing.assert_array_equal(again(frames, prm), out)
+    np.testing.assert_array_equal(again(frames[:FPC], prm[:FPC]),
+                                  mod(frames[:FPC], prm[:FPC]))
+    # the artifact keeps the float parameters, a checkpoint for either
+    # package
+    import zipfile
+    with zipfile.ZipFile(path) as z:
+        with np.load(io.BytesIO(z.read("params.npz"))) as npz:
+            flat = ckpt.to_jax_flat(params)
+            assert sorted(npz.files) == sorted(flat)
+            np.testing.assert_array_equal(npz["frames/dcnn/conv2/w"],
+                                          flat["frames/dcnn/conv2/w"])
+    # int8 differs from float, but not by much
+    ref = serving.ServingModule(mod.model, params, batch_items=ITEMS,
+                                device="cpu")(frames, prm)
+    delta = np.abs(out - ref).max()
+    assert 0 < delta < 0.5 * np.abs(ref).max()
+
+
+def test_int8_static_needs_a_calibration_batch():
+    _, model = _build()
+    params = model.init_params(seed=0, device="cpu")
+    with pytest.raises(FrameworkError,
+                       match="int8_static requires a calibration batch"):
+        serving.ServingModule(model, params, batch_items=ITEMS, device="cpu",
+                              quantize="int8_static")
+    with pytest.raises(FrameworkError, match="val quantize"):
+        serving.ServingModule(model, params, batch_items=ITEMS, device="cpu",
+                              quantize="int4")
+
+
+def test_calls_route_to_the_smallest_bucket_that_fits(int8_modules):
+    mods, settings, _ = int8_modules
+    mod = mods["int8_static"]
+    proc = settings.feeder.datasets[0].processor
+    frames, prm = _inputs(proc, ITEMS, 32)
+    assert [s["shape"][0] for s in mod.meta["inputs"]] == [ITEMS * FPC] * 2
+    full = mod(frames, prm)
+    assert mod.last_bucket == ITEMS and full.shape == (ITEMS, CLASSES)
+    one = mod(frames[:FPC], prm[:FPC])
+    assert mod.last_bucket == 1 and one.shape == (1, CLASSES)
+    # static scales: the same row at another bucket, up to the rounding
+    # of float products of another shape
+    np.testing.assert_allclose(one[0], full[0], rtol=1e-5, atol=1e-6)
+    mod(frames[:FPC + 1], prm[:FPC + 1])         # more than one clip
+    assert mod.last_bucket == ITEMS
+    out = mod.warmup()
+    assert out.shape == (ITEMS, CLASSES) and mod.last_bucket == ITEMS
+
+
+def test_dynamic_int8_logits_depend_on_batch_mates(int8_modules):
+    """The activation scale of dynamic int8 is one amax over the whole
+    padded batch, as in the JAX package: the same row beside two
+    different batch-mates gives different logits.  Float and
+    int8_static logits do not move."""
+    mods, settings, params = int8_modules
+    proc = settings.feeder.datasets[0].processor
+    frames, prm = _inputs(proc, 1, 33)
+    mates = [_inputs(proc, 1, 34), _inputs(proc, 1, 35)]
+    # a brighter batch-mate raises the batch's amax
+    mates[1] = (np.full_like(mates[1][0], 255), mates[1][1])
+    float_mod = serving.ServingModule(mods["int8"].model, params,
+                                      batch_items=ITEMS, device="cpu")
+    rows = {}
+    for name, mod in (("int8", mods["int8"]),
+                      ("int8_static", mods["int8_static"]),
+                      ("float", float_mod)):
+        rows[name] = [mod(np.concatenate([frames, f]),
+                          np.concatenate([prm, p]))[0] for f, p in mates]
+    assert not np.array_equal(*rows["int8"])
+    np.testing.assert_array_equal(*rows["int8_static"])
+    np.testing.assert_array_equal(*rows["float"])
+
+
+def test_selftest_reports_each_request_size(int8_modules, capsys):
+    mods, _, _ = int8_modules
+    rows = serve_mod.selftest(mods["int8_static"], item_counts=(1, 2),
+                              duration_s=0.5, concurrency=2, window_ms=2.0)
+    assert [r["items_per_request"] for r in rows] == [1, 2]
+    for r in rows:
+        assert r["requests"] > 0 and r["errors"] == 0
+        assert r["rps"] > 0 and r["p99_ms"] >= r["p50_ms"] > 0
+        assert r["items_per_sec"] == pytest.approx(
+            r["rps"] * r["items_per_request"])
+    printed = [json.loads(line) for line in
+               capsys.readouterr().out.strip().splitlines()]
+    assert printed == rows
+
+
+def test_metrics_count_device_calls_by_bucket(int8_modules):
+    mods, settings, _ = int8_modules
+    proc = settings.feeder.datasets[0].processor
+    batcher = serve_mod.Batcher(mods["int8"], window_s=0.0)
+    try:
+        batcher.run(list(_inputs(proc, 1, 36)))
+        batcher.run(list(_inputs(proc, 2, 37)))
+    finally:
+        batcher.close()
+    assert batcher.stats.device_calls == {1: 1, ITEMS: 1}
+    text = batcher.stats.render().decode()
+    assert 'vlx_device_calls_total{bucket="1"} 1' in text

@@ -18,6 +18,7 @@ lengths (``CaptionOpts`` holds the run's decode options).
 import numpy as np
 
 from video_learning_tpu_torch.defs import defs
+from video_learning_tpu_torch.utils import error
 
 # the Network fields a pipeline spec carries (and a serving artifact
 # records, serving.model_spec)
@@ -63,7 +64,19 @@ class TrainOpts:
 
 class ValOpts:
     batch_size = 1
+    quantize = None                 # "int8"/"int8_static": w8a8 serving
     use_ema = False                 # evaluate the EMA weights
+
+
+def check_quantize(value):
+    """A ``val.quantize`` value as the JAX config parses it: None (or
+    "None"), "int8" (dynamic activation scales) or "int8_static"
+    (calibrated static scales); anything else is an error."""
+    if value not in (None, "None", "int8", "int8_static"):
+        error("val quantize must be 'int8' (dynamic activation "
+              "scales) or 'int8_static' (scales calibrated on the "
+              "first eval batch), got %r" % (value,))
+    return None if value in (None, "None") else value
 
 
 class CaptionOpts:

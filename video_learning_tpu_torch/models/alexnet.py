@@ -1,7 +1,6 @@
 """AlexNet DCNN frame encoder.
 
-Counterpart of ``video_learning_tpu/models/alexnet.py:75-126,256-298,
-426-452``: grouped convolutions (group=2 on conv2/4/5), LRN after conv1
+Counterpart of ``video_learning_tpu/models/alexnet.py:75-126,256-452``: grouped convolutions (group=2 on conv2/4/5), LRN after conv1
 and conv2 (the CUDA LRN kernel on the GPU), three VALID max pools,
 fc6/fc7 (4096) and a fresh fc8 sized to num_classes, with
 ``frame_encoding_layer`` truncation at fc6 / fc7 / prob and the two-tier
@@ -17,8 +16,13 @@ fc6's rows line up with its checkpoints.
 conv1 runs through ``Conv1Function``, the counterpart of
 ``alexnet._conv1_direct`` (``alexnet.py:208-253``): cuDNN forward, and a
 backward whose weight gradient is a hand kernel (``ops/conv1_dw.py``).
-Not ported yet: the int8 serving forward, the space-to-depth forward
-and the pretrained bvlc ``.npy`` loader.
+
+The int8 serving forward (``apply_int8``), its static-scale calibration
+(``apply_calib``) and the once-per-checkpoint weight quantization
+(``quantize_params``) follow ``alexnet.py:301-423``: conv2..conv5 and
+fc6..fc8 in w8a8 (``layers.conv_apply_int8`` / ``fc_apply_int8``), conv1
+in the compute dtype, LRN and pooling unchanged.  Not ported yet: the
+space-to-depth forward and the pretrained bvlc ``.npy`` loader.
 """
 
 import math
@@ -27,8 +31,9 @@ import torch
 import torch.nn.functional as F
 
 from video_learning_tpu_torch.models.layers import (
-    conv_apply, conv_init, fc_apply, fc_init, flat_dim, hwio_to_oihw,
-    local_response_normalization, max_pool, same_pads)
+    CONV_WEIGHT_AXES, FC_WEIGHT_AXES, conv_apply, conv_apply_int8, conv_init,
+    fc_apply, fc_apply_int8, fc_init, flat_dim, hwio_to_oihw,
+    local_response_normalization, max_pool, quantize_sym, same_pads)
 from video_learning_tpu_torch.ops import conv1_dw as conv1_dw_ops
 from video_learning_tpu_torch.utils import error
 
@@ -117,24 +122,14 @@ class Conv1Function(torch.autograd.Function):
         return dx, dw, db, None
 
 
-def apply(params, x, final_layer="prob", compute_dtype=None,
-          conv1_dw="shifted"):
-    """Forward pass.  x: (N, H, W, 3) (BGR, preprocessed).  Returns the
-    float32 encoding at ``final_layer`` (fc6/fc7) or the fc8 logits.
-    ``conv1_dw`` picks conv1's weight-gradient kernel, "shifted" (the
-    formulation the JAX model reaches) or "blocked"."""
+def _forward(params, x, final_layer, compute_dtype, conv1_dw, conv, fc):
+    """The AlexNet stages with conv2..conv5 as ``conv(name, x)`` and
+    fc6..fc8 as ``fc(name, x)`` (fc6 and fc7 followed by relu)."""
     if final_layer is None:
         final_layer = "prob"
     if conv1_dw not in CONV1_DW:
         error("conv1_dw must be one of %s, got %r"
               % (sorted(CONV1_DW), conv1_dw))
-
-    def conv(name, inp):
-        _, _, _, _, stride, groups = _CONV_SPECS[name]
-        return conv_apply(params[name], inp, (stride, stride), "SAME",
-                          groups=groups, relu=True,
-                          compute_dtype=compute_dtype)
-
     w1, b1 = params["conv1"]["w"], params["conv1"]["b"]
     if compute_dtype is not None:
         x = x.to(compute_dtype)
@@ -151,13 +146,116 @@ def apply(params, x, final_layer="prob", compute_dtype=None,
     x = max_pool(x, (3, 3), (2, 2), "VALID")
     x = x.reshape(x.shape[0], flat_dim(x.shape[1:]))    # NHWC order
 
-    x = F.relu(fc_apply(params["fc6"], x, compute_dtype))
+    x = F.relu(fc("fc6", x))
     if final_layer == "fc6":
         return x
-    x = F.relu(fc_apply(params["fc7"], x, compute_dtype))
+    x = F.relu(fc("fc7", x))
     if final_layer == "fc7":
         return x
-    return fc_apply(params["fc8"], x, compute_dtype)
+    return fc("fc8", x)
+
+
+def _conv_stride_groups(name):
+    _, _, _, _, stride, groups = _CONV_SPECS[name]
+    return (stride, stride), groups
+
+
+def apply(params, x, final_layer="prob", compute_dtype=None,
+          conv1_dw="shifted"):
+    """Forward pass.  x: (N, H, W, 3) (BGR, preprocessed).  Returns the
+    float32 encoding at ``final_layer`` (fc6/fc7) or the fc8 logits.
+    ``conv1_dw`` picks conv1's weight-gradient kernel, "shifted" (the
+    formulation the JAX model reaches) or "blocked"."""
+
+    def conv(name, inp):
+        strides, groups = _conv_stride_groups(name)
+        return conv_apply(params[name], inp, strides, "SAME", groups=groups,
+                          relu=True, compute_dtype=compute_dtype)
+
+    def fc(name, inp):
+        return fc_apply(params[name], inp, compute_dtype)
+
+    return _forward(params, x, final_layer, compute_dtype, conv1_dw, conv,
+                    fc)
+
+
+def apply_int8(params, x, final_layer="prob", compute_dtype=None):
+    """The w8a8 serving forward (forward only): conv2..conv5 and the FC
+    stack in int8 with int32 sums, their outputs dequantized to the
+    compute dtype (bf16 when None) for convs and float32 for FCs; conv1
+    in the compute dtype; LRN and pooling unchanged.  ``params`` are raw
+    or from ``quantize_params`` (with calibrated "xs" scales for
+    int8_static).  Same truncation as ``apply``."""
+    out_dtype = compute_dtype or torch.bfloat16
+
+    def conv(name, inp):
+        strides, groups = _conv_stride_groups(name)
+        return conv_apply_int8(params[name], inp, strides, "SAME",
+                               groups=groups, relu=True, out_dtype=out_dtype)
+
+    def fc(name, inp):
+        return fc_apply_int8(params[name], inp)
+
+    return _forward(params, x, final_layer, compute_dtype, "shifted", conv,
+                    fc)
+
+
+def apply_calib(params, x, final_layer="prob", compute_dtype=None):
+    """Calibration forward for static int8 activation scales: the float
+    forward of ``apply``, also returning {layer: amax(|input|)} as
+    float32 0-d tensors on x's device (no host sync) at every
+    int8-eligible layer input (conv2..conv5, fc6..fc8 where present):
+    the tensors ``apply_int8`` would reduce per batch.  Returns
+    (output at ``final_layer``, taps)."""
+    taps = {}
+
+    def tap(name, inp):
+        taps[name] = inp.abs().amax().to(torch.float32)
+        return inp
+
+    def conv(name, inp):
+        strides, groups = _conv_stride_groups(name)
+        return conv_apply(params[name], tap(name, inp), strides, "SAME",
+                          groups=groups, relu=True,
+                          compute_dtype=compute_dtype)
+
+    def fc(name, inp):
+        return fc_apply(params[name], tap(name, inp), compute_dtype)
+
+    return _forward(params, x, final_layer, compute_dtype, "shifted", conv,
+                    fc), taps
+
+
+def quantize_params(params, act_ranges=None):
+    """The int8-eligible layers pre-quantized once per checkpoint:
+    conv2..conv5 become {"wq" OIHW int8, "ws" (Cout, 1, 1, 1), "b"} and
+    fc6..fc8 {"wq" (in, out) int8, "ws" (1, out), "b"}; conv1 and absent
+    (truncated) layers pass through.  ``act_ranges`` ({layer: amax}, from
+    ``apply_calib``; numbers or 0-d tensors) also bakes the static
+    activation scale "xs" = amax / 127 + 1e-12 (float32) into each entry
+    (quantize: int8_static); a layer missing from it is an error."""
+    out = dict(params)
+
+    def entry(name, axes):
+        w = out[name]["w"]
+        wq, ws = quantize_sym(w, axes=axes)
+        e = {"wq": wq, "ws": ws, "b": out[name]["b"]}
+        if act_ranges is not None:
+            if name not in act_ranges:
+                error("Calibration ranges missing layer [%s] — taps %s"
+                      % (name, sorted(act_ranges)))
+            amax = torch.as_tensor(act_ranges[name], dtype=torch.float32,
+                                   device=w.device)
+            e["xs"] = amax / 127.0 + 1e-12
+        return e
+
+    for name in ("conv2", "conv3", "conv4", "conv5"):
+        if name in out:
+            out[name] = entry(name, CONV_WEIGHT_AXES)
+    for name in ("fc6", "fc7", "fc8"):
+        if name in out:
+            out[name] = entry(name, FC_WEIGHT_AXES)
+    return out
 
 
 def output_dim(final_layer, num_classes):

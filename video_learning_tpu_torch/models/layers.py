@@ -1,7 +1,7 @@
 """Shared functional layers: parameter init and apply for FC, conv, pool
 and LRN.
 
-Counterpart of ``video_learning_tpu/models/layers.py:19-91,156-180``.
+Counterpart of ``video_learning_tpu/models/layers.py:19-91,156-266``.
 Activations keep the JAX package's NHWC layout at every public function.
 A contiguous NHWC tensor viewed as NCHW (``permute(0, 3, 1, 2)``) is
 exactly torch's ``channels_last`` format, so the convolutions and pools
@@ -13,12 +13,19 @@ OIHW (channels_last) inside the port and HWIO in checkpoints
 Precision follows the JAX package: ``fc_apply`` multiplies in the compute
 dtype with a float32 result and adds the bias in float32;
 ``conv_apply`` computes and adds the bias in the compute dtype.
+
+The w8a8 serving layers (``quantize_sym``, ``quantize_static``,
+``conv_apply_int8``, ``fc_apply_int8``) keep the JAX numerics: x / scale
+in float32, rounded half to even, clamped to +-127; scale = amax / 127 +
+1e-12 in float32; the int32 product (``ops/int8_mm.py``); the epilogue
+acc * (xs * ws) + b in float32.
 """
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from video_learning_tpu_torch.ops.int8_mm import int8_mm
 from video_learning_tpu_torch.ops.lrn import LRNFunction
 from video_learning_tpu_torch.utils import error
 
@@ -143,6 +150,142 @@ def local_response_normalization(x, depth_radius=2, bias=1.0, alpha=2e-5,
     backward (ops/lrn.py ``LRNFunction``)."""
     return LRNFunction.apply(x.contiguous(), depth_radius, bias, alpha,
                              beta)
+
+
+# ------------------------------------------------------- int8 (serving PTQ)
+def quantize_sym(x, axes):
+    """Symmetric int8 quantization: q = clamp(round(x / s), -127, 127)
+    with s = amax(|x|) / 127 + 1e-12 reduced over ``axes`` (None: the
+    whole tensor), in float32.  ``torch.round`` rounds half to even, as
+    ``jnp.round`` does.  Returns (q int8, scale float32 broadcastable
+    against x: a 0-d tensor for ``axes=None``, else kept dims)."""
+    if axes is None:
+        a = x.abs().amax().to(torch.float32)
+    else:
+        a = x.abs().amax(dim=axes, keepdim=True).to(torch.float32)
+    scale = a / 127.0 + 1e-12
+    return quantize_static(x, scale)
+
+
+def quantize_static(x, scale):
+    """int8 quantization against a given (calibrated) scale: purely
+    elementwise; activations beyond the calibrated range saturate at
+    +-127.  x is taken to float32 before the division (a 0-d float32
+    scale would not promote a bf16 x)."""
+    q = torch.round(x.to(torch.float32) / scale).clamp_(-127, 127)
+    return q.to(torch.int8), scale
+
+
+def _int8_weight(params, axes):
+    """(wq, ws) of a raw {"w", "b"} entry (quantized here) or a
+    pre-quantized {"wq", "ws", "b"} one."""
+    if "wq" in params:
+        return params["wq"], params["ws"]
+    return quantize_sym(params["w"], axes=axes)
+
+
+def _int8_input(params, x):
+    """(xq, xs): against the calibrated static scale ``xs`` when the
+    entry has one, else the dynamic per-tensor amax of this batch."""
+    if "xs" in params:
+        return quantize_static(x, params["xs"])
+    return quantize_sym(x, axes=None)
+
+
+def _dequantize(acc, xs, ws, b):
+    """acc * (xs * ws) + b in float32, as the JAX epilogue computes it
+    (on a fresh float32 copy of the int32 sums, in place)."""
+    return acc.to(torch.float32).mul_(xs * ws).add_(b.to(torch.float32))
+
+
+# conv weights are OIHW in the port: the per-output-channel weight scale
+# reduces over (I, H, W), the JAX HWIO entry's axes (0, 1, 2)
+CONV_WEIGHT_AXES = (1, 2, 3)
+FC_WEIGHT_AXES = (0,)
+
+
+def im2col_int8(xq, kh, kw, strides, pads, channels):
+    """(N*Ho*Wo, kh*kw*Cg) int8 patch rows of an NHWC int8 tensor, with
+    the input zero-padded by ``pads`` ((top, bottom), (left, right)); the
+    int8 zero is the quantized zero, as in XLA's padded int8 conv.  Each
+    row is ordered (kh, kw, c) over the channel slice ``channels`` (a
+    (start, stop) pair), the flattening of an HWIO weight's first three
+    axes."""
+    (top, bottom), (left, right) = pads
+    n, h, w, c = xq.shape
+    if top or bottom or left or right:
+        xp = xq.new_zeros((n, h + top + bottom, w + left + right, c))
+        xp[:, top:top + h, left:left + w] = xq
+    else:
+        xp = xq.contiguous()
+    hp, wp = xp.shape[1:3]
+    ho = (hp - kh) // strides[0] + 1
+    wo = (wp - kw) // strides[1] + 1
+    c0, c1 = channels
+    sn, sh, sw, _ = xp.stride()
+    win = xp.as_strided((n, ho, wo, kh, kw, c1 - c0),
+                        (sn, sh * strides[0], sw * strides[1], sh, sw, 1),
+                        xp.storage_offset() + c0)
+    return win.reshape(n * ho * wo, kh * kw * (c1 - c0)), (n, ho, wo)
+
+
+def int8_weight_matrix(wq, groups, g):
+    """The (kh*kw*Cin_g, Cout_g) int8 matrix of group ``g`` of an OIHW
+    int8 conv weight, its rows in ``im2col_int8``'s (kh, kw, c) order."""
+    cout_g = wq.shape[0] // groups
+    return wq[g * cout_g:(g + 1) * cout_g].permute(0, 2, 3, 1).reshape(
+        cout_g, -1).t().contiguous()
+
+
+def conv_apply_int8(params, x, strides, padding, groups=1, relu=True,
+                    out_dtype=torch.bfloat16):
+    """w8a8 post-training-quantized NHWC conv for the forward-only
+    serving path (``layers.conv_apply_int8`` of the JAX package):
+    per-output-channel symmetric weight scales, a per-tensor activation
+    scale (dynamic, or the calibrated ``xs``), the int32 product of an
+    int8 im2col with the weight matrix of each group (``ops/int8_mm``),
+    and the epilogue acc * (xs * ws) + b in float32, relu, cast to
+    ``out_dtype``.  ``params`` is a raw {"w", "b"} entry (OIHW w) or a
+    pre-quantized {"wq", "ws", "b"[, "xs"]} one from
+    ``alexnet.quantize_params`` (wq OIHW int8, ws (Cout, 1, 1, 1))."""
+    wq, ws = _int8_weight(params, CONV_WEIGHT_AXES)
+    xq, xs = _int8_input(params, x)
+    cout, cin_g, kh, kw = wq.shape
+    if padding == "SAME":
+        pads = (same_pads(x.shape[1], kh, strides[0]),
+                same_pads(x.shape[2], kw, strides[1]))
+    elif padding == "VALID":
+        pads = ((0, 0), (0, 0))
+    else:
+        error("conv padding must be SAME or VALID, got %r" % (padding,))
+    cout_g = cout // groups
+    ws = ws.reshape(cout)
+    out = None
+    for g in range(groups):
+        o0, o1 = g * cout_g, (g + 1) * cout_g
+        cols, (n, ho, wo) = im2col_int8(xq, kh, kw, strides, pads,
+                                        (g * cin_g, (g + 1) * cin_g))
+        y = _dequantize(int8_mm(cols, int8_weight_matrix(wq, groups, g)),
+                        xs, ws[o0:o1], params["b"][o0:o1])
+        del cols
+        if relu:
+            y = torch.relu_(y)
+        if out is None:
+            out = torch.empty((n * ho * wo, cout), dtype=out_dtype,
+                              device=x.device)
+        out[:, o0:o1] = y
+    return out.reshape(n, ho, wo, cout)
+
+
+def fc_apply_int8(params, x):
+    """w8a8 dense layer (``layers.fc_apply_int8`` of the JAX package):
+    per-output-column weight scales ws (1, out), a per-tensor activation
+    scale, the int32 product and a float32 result with the float32
+    bias.  Takes raw or pre-quantized entries like ``conv_apply_int8``."""
+    wq, ws = _int8_weight(params, FC_WEIGHT_AXES)
+    xq, xs = _int8_input(params, x)
+    return _dequantize(int8_mm(xq.contiguous(), wq.contiguous()), xs, ws,
+                       params["b"])
 
 
 # ----------------------------------------------------------------- dropout

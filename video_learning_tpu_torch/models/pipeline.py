@@ -18,7 +18,12 @@ classification:
 * the captioner: when a dataset carries an embedding matrix, the last
   pipeline's LSTM becomes a captioner conditioned on the visual vector
   (``_apply_captioner``): per-word logits over the padded word grid in
-  training, greedy or beam decoding with ``decode=True``.
+  training, greedy or beam decoding with ``decode=True``,
+* int8 serving (``quantize="int8"`` / ``"int8_static"``): every DCNN frame
+  encoder runs its w8a8 forward, everything after it (LSTM, FCs, the
+  caption decode) stays in float; ``quantize_params`` pre-quantizes the
+  encoders' weights once and ``calib_taps`` collects the activation
+  ranges that int8_static bakes in.
 
 Parameter-tree names equal the JAX names (``frames/dcnn/conv1/w``,
 ``clf/lstm/cells/0/w``, ``clf/state_fc/w``, ``clf/output_fc/b``), so
@@ -265,9 +270,38 @@ class Model:
         """(regular, modified) parameter path prefixes for two-tier LR."""
         return self._groups["regular"], self._groups["modified"]
 
+    def quantize_params(self, params, act_ranges=None):
+        """Every int8-capable frame encoder's weights pre-quantized once
+        per checkpoint (the serving path); the other leaves are kept.
+        ``act_ranges`` ({pipeline: {layer: amax}} from ``apply(...,
+        calib_taps=...)``) also bakes static activation scales
+        (int8_static).  Warns when no pipeline has an int8 path: the
+        forward then runs unquantized."""
+        out = dict(params)
+        quantized = 0
+        for spec in self.specs:
+            vec = spec["vectorizer"]
+            if vec.param_key is None:
+                continue
+            sub = out.get(spec["name"]) or {}
+            vp = sub.get(vec.param_key)
+            if vp is None:
+                continue
+            qp = vec.quantize_params(
+                vp, act_ranges=(act_ranges or {}).get(spec["name"]))
+            if qp is not None:
+                out[spec["name"]] = dict(sub, **{vec.param_key: qp})
+                quantized += 1
+        if quantized == 0:
+            warning("quantize requested but no pipeline has an "
+                    "int8-capable frame encoder (DCNN) — the forward "
+                    "runs UNQUANTIZED")
+        return out
+
     # --------------------------------------------------------------- apply
     def apply(self, params, feed, train=False, dropout_generator=None,
-              conv1_dw="shifted", decode=False):
+              conv1_dw="shifted", decode=False, quantize=None,
+              calib_taps=None):
         """Run the full DAG.  feed: {input_key: tensor or array}; arrays
         move to the parameters' device.  Returns float32 logits,
         (num_items, num_classes) for classification and (B*T,
@@ -279,7 +313,20 @@ class Model:
         seeds training dropout: pipeline i draws from a generator seeded
         with ``fold_in(its seed, i)``, so two same-shaped dropout sites in
         different pipelines never share a mask (JAX ``fold_in(rng, i)``).
-        ``conv1_dw`` picks the stem conv's weight-gradient kernel."""
+        ``conv1_dw`` picks the stem conv's weight-gradient kernel.
+        ``quantize`` ("int8" / "int8_static") runs the frame encoders'
+        w8a8 serving forward (forward only: refused in training), on raw
+        or ``quantize_params`` parameters.  ``calib_taps``, a dict, runs
+        the float forward and fills it with {pipeline: {layer: amax}}
+        activation ranges (0-d tensors) of every int8-capable encoder:
+        the calibration pass of int8_static."""
+        if quantize is not None and train:
+            error("quantize=%s is a serving (forward-only) mode; "
+                  "training gradients through int8 rounding are zero"
+                  % quantize)
+        if calib_taps is not None and quantize is not None:
+            error("calibration runs the float forward; it cannot be "
+                  "combined with quantize=%s" % quantize)
         device = _tree_device(params)
         feed = {k: (v if isinstance(v, torch.Tensor)
                     else torch.as_tensor(np.asarray(v))).to(device)
@@ -293,13 +340,13 @@ class Model:
                     fold_in(dropout_generator.initial_seed(), i))
             logits = self._apply_pipeline(params[spec["name"]], spec, feed,
                                           outputs, train, gen_i, conv1_dw,
-                                          decode)
+                                          decode, quantize, calib_taps)
             if decode is _DECODER_INPUTS and spec["caption"]:
                 return logits
             outputs[spec["name"]] = logits
         return logits
 
-    def decoder_inputs(self, params, feed):
+    def decoder_inputs(self, params, feed, quantize=None):
         """The keyword arguments ``apply(decode=True)`` gives
         ``greedy_decode`` for ``feed`` (``beam_decode`` takes them with
         ``eos_index``): the captioner's LSTM and ``output_fc`` parameters,
@@ -307,11 +354,14 @@ class Model:
         through ``state_fc`` in the compute dtype with a float32 result;
         input_concat has no ``state_fc``), the embedding matrix on the
         parameters' device, BOS, T, the hidden width and the visual
-        mode."""
-        return self.apply(params, feed, decode=_DECODER_INPUTS)
+        mode.  ``quantize`` as ``apply`` takes it: the frame encoders of
+        the conditioning in int8."""
+        return self.apply(params, feed, decode=_DECODER_INPUTS,
+                          quantize=quantize)
 
     def _apply_pipeline(self, p, spec, feed, outputs, train,
-                        dropout_generator, conv1_dw, decode):
+                        dropout_generator, conv1_dw, decode, quantize,
+                        calib_taps):
         net, name = spec["net"], spec["name"]
         inputs, dims, fpcs, cpvs = [], [], [], []
         for src in spec["sources"]:
@@ -336,8 +386,14 @@ class Model:
         fusion_type, fusion_method = (net.frame_fusion if net.frame_fusion
                                       else (None, None))
         vec = spec["vectorizer"]
-        x = vec.apply(p.get(vec.param_key), x,
-                      compute_dtype=self.compute_dtype, conv1_dw=conv1_dw)
+        calib = None if calib_taps is None else vec.apply_calib(
+            p.get(vec.param_key), x, compute_dtype=self.compute_dtype)
+        if calib is not None:
+            x, calib_taps[name] = calib
+        else:
+            x = vec.apply(p.get(vec.param_key), x,
+                          compute_dtype=self.compute_dtype,
+                          conv1_dw=conv1_dw, quant=quantize)
         dim = int(x.shape[-1])
         if self.settings.print_tensors:
             debug("Vectorized output [%s] shape=%s" % (name, tuple(x.shape)))

@@ -1,23 +1,29 @@
 """Vectorizer strategy objects: NOP / DCNN / FC / LSTM.
 
-Counterpart of ``video_learning_tpu/models/vectorizer.py:82-214`` without
-the int8 paths.  Contract with the pipeline DAG (models/pipeline.py):
+Counterpart of ``video_learning_tpu/models/vectorizer.py:59-214``.
+Contract with the pipeline DAG (models/pipeline.py):
 
 * ``param_key``        - name of the vectorizer's subtree in the
                          pipeline's parameter dict (None: stateless),
 * ``init(generator, shape, device)`` - build the parameter tree; fills
                          ``train_regular`` / ``train_modified`` with
                          relative parameter paths ("" = the whole tree),
-* ``apply(params, x, compute_dtype, conv1_dw)`` - run it;
+* ``apply(params, x, compute_dtype, conv1_dw, quant)`` - run it;
                          ``conv1_dw`` picks the stem conv's
-                         weight-gradient kernel and only the DCNN reads it.
+                         weight-gradient kernel and only the DCNN reads it;
+                         ``quant`` ("int8" / "int8_static") selects the
+                         DCNN's w8a8 serving forward,
+* ``quantize_params(params, act_ranges)`` / ``apply_calib(params, x,
+  compute_dtype)`` - the int8 form of the params and the calibration
+                         forward, or None where the strategy has no int8
+                         path.
 """
 
 from video_learning_tpu_torch.defs import defs
 from video_learning_tpu_torch.models import alexnet, lstm as lstm_mod
 from video_learning_tpu_torch.models.layers import (convert_dim_fc_apply,
                                                     convert_dim_fc_init)
-from video_learning_tpu_torch.utils import error
+from video_learning_tpu_torch.utils import error, warning_once
 
 
 class Vectorizer:
@@ -41,19 +47,38 @@ class Vectorizer:
     def init(self, generator, input_shape, device="cpu"):
         return None
 
+    def quantize_params(self, params, act_ranges=None):
+        """The pre-quantized (int8 serving) form of this vectorizer's
+        params, or None where the strategy has no int8 path (the
+        pipeline then keeps its params and ``Model.quantize_params``
+        warns).  ``act_ranges`` ({layer: amax} from ``apply_calib``)
+        bakes static activation scales (int8_static)."""
+        return None
+
+    def apply_calib(self, params, x, compute_dtype=None):
+        """(float output, {layer: amax} taps) for static int8
+        calibration, or None where the strategy has no int8 path (the
+        pipeline then runs the plain apply and calibrates nothing)."""
+        return None
+
     def output_dim(self, in_dim):
         """Feature dimension produced for inputs of trailing dim
         ``in_dim``."""
         return in_dim
 
-    def apply(self, params, x, compute_dtype=None, conv1_dw="shifted"):
+    def apply(self, params, x, compute_dtype=None, conv1_dw="shifted",
+              quant=None):
         raise NotImplementedError
 
 
 class NOP(Vectorizer):
     name = "nop"
 
-    def apply(self, params, x, compute_dtype=None, conv1_dw="shifted"):
+    def apply(self, params, x, compute_dtype=None, conv1_dw="shifted",
+              quant=None):
+        if quant:
+            warning_once("quantize=%s has no effect on a [nop] "
+                         "representation" % quant, key="nop-quantize")
         return x
 
 
@@ -84,10 +109,24 @@ class DCNN(Vectorizer):
         return alexnet.output_dim(self.frame_encoding_layer,
                                   self.num_classes)
 
-    def apply(self, params, x, compute_dtype=None, conv1_dw="shifted"):
+    def apply(self, params, x, compute_dtype=None, conv1_dw="shifted",
+              quant=None):
         self.require_input(x.shape, 3)
+        if quant in ("int8", "int8_static"):
+            # the forward-only serving path; static scales ride in the
+            # params as "xs" entries, so both modes share one forward
+            return alexnet.apply_int8(params, x, self.frame_encoding_layer,
+                                      compute_dtype=compute_dtype)
         return alexnet.apply(params, x, self.frame_encoding_layer,
                              compute_dtype=compute_dtype, conv1_dw=conv1_dw)
+
+    def quantize_params(self, params, act_ranges=None):
+        return alexnet.quantize_params(params, act_ranges=act_ranges)
+
+    def apply_calib(self, params, x, compute_dtype=None):
+        self.require_input(x.shape, 3)
+        return alexnet.apply_calib(params, x, self.frame_encoding_layer,
+                                   compute_dtype=compute_dtype)
 
 
 class FC(Vectorizer):
@@ -106,8 +145,13 @@ class FC(Vectorizer):
     def output_dim(self, in_dim):
         return self.fc_output_dim
 
-    def apply(self, params, x, compute_dtype=None, conv1_dw="shifted"):
+    def apply(self, params, x, compute_dtype=None, conv1_dw="shifted",
+              quant=None):
         self.require_input(x.shape, 2)
+        if quant:
+            warning_once("quantize=%s is implemented for DCNN frame "
+                         "encoders only; the [FC] representation runs "
+                         "unquantized" % quant, key="fc-quantize")
         return convert_dim_fc_apply(params, x, compute_dtype)
 
 

@@ -1,18 +1,35 @@
 """The serving forward and its artifact.
 
-Counterpart of ``video_learning_tpu/val.py`` ``build_serving_fn`` and the
-load side of ``video_learning_tpu/tools/export_serving.py``.  A
-``ServingModule`` runs exactly the validation forward: uint8 frames and
-host-drawn (crop_y, crop_x, mirror) triples go to the device, are
-preprocessed there (``ops/preprocess.py``) and run through
-``Model.apply(train=False)`` under ``torch.inference_mode()``.
+Counterpart of ``video_learning_tpu/val.py`` ``build_serving_fn`` (with
+``_calibration_ranges`` / ``_maybe_quantize``) and the load side of
+``video_learning_tpu/tools/export_serving.py``.  A ``ServingModule`` runs
+exactly the validation forward: uint8 frames and host-drawn (crop_y,
+crop_x, mirror) triples go to the device, are preprocessed there
+(``ops/preprocess.py``) and run through ``Model.apply(train=False)``
+under ``torch.inference_mode()``.
 
 Calls take the positional arrays ``meta["inputs"]`` describes, with the
 JAX artifact's names (``frames_main_input`` and
-``frames_main_input/proc_params``).  A short batch is zero-padded to the
-module's static geometry (``batch_items``) and the padding rows dropped
-from the output, as the JAX artifact does, so a row's logits do not
-depend on what else shares its call.
+``frames_main_input/proc_params``) and the leading dims of the largest
+bucket.  ``batch_items`` may be a list of static batch sizes (buckets,
+e.g. [1, 8, 32]): each call runs at the smallest bucket that fits it
+(``last_bucket``), as the JAX artifact routes, so a lone request does
+not pay for a full batch.  A short batch is zero-padded to its bucket and
+the padding rows dropped from the output.  In float and ``int8_static``
+modes a row's logits do not depend on what else shares its call (a
+bucket of another size may round its float products differently in the
+last bits).  In dynamic ``int8`` mode they do, as in the JAX package: the
+activation scale of each int8 layer is one amax over the whole padded
+batch, so a row's logits depend on its batch-mates and on the bucket.
+
+``quantize`` ("int8" / "int8_static", ``config.check_quantize``) serves
+the w8a8 forward of the frame encoders; their weights are quantized once
+at construction.  ``int8_static`` first runs one float calibration
+forward over ``calib_feed`` (positional arrays, as a call takes them)
+through the same device preprocessing, and bakes the activation ranges
+it finds into static scales; ``meta["act_ranges"]`` keeps them
+({pipeline: {layer: amax}}), so ``load`` re-quantizes from them to the
+same bits.
 
 A captioner's module decodes: it returns (B, T) int32 word indices,
 its meta's output is ``{"kind": "token_ids", "vocabulary": [...],
@@ -23,9 +40,9 @@ strings cut at the first EOS.
 The artifact is a zip of ``meta.json`` (the JAX meta keys, plus the
 model spec that rebuilds the DAG, caption options included),
 ``params.npz`` (JAX flat names and layouts, so the artifact is also a
-checkpoint for either package) and, for a captioner, ``embeddings.npz``
-(each caption dataset's embedding matrix by dataset tag).  Bucketed
-batches, multi-device export and int8 are not ported yet.
+checkpoint for either package, float even for an int8 module) and, for a
+captioner, ``embeddings.npz`` (each caption dataset's embedding matrix
+by dataset tag).  Multi-device export is not ported yet.
 """
 
 import io
@@ -40,7 +57,8 @@ from video_learning_tpu_torch.checkpoint import (from_jax_flat, to_jax_flat,
 from video_learning_tpu_torch.config import (NETWORK_FIELDS, CaptionOpts,
                                              GeometryDataset,
                                              GeometryFeeder, Network,
-                                             Settings, ValOpts)
+                                             Settings, ValOpts,
+                                             check_quantize)
 from video_learning_tpu_torch.data.captions import trim_at_eos
 from video_learning_tpu_torch.models.pipeline import Model
 from video_learning_tpu_torch.ops.preprocess import (make_preprocessor,
@@ -119,14 +137,29 @@ def _to_device(tree, device):
 
 
 class ServingModule:
-    """The serving forward of ``model`` with ``params`` at a static batch
-    of ``batch_items`` items, on ``device``."""
+    """The serving forward of ``model`` with ``params`` at the static
+    batch sizes ``batch_items`` (an int, or a list of buckets) on
+    ``device``, in float or ``quantize`` mode.  ``int8_static`` takes its
+    activation ranges from ``act_ranges`` ({pipeline: {layer: amax}}, as
+    ``meta["act_ranges"]`` holds them) or calibrates them on
+    ``calib_feed``."""
 
-    def __init__(self, model, params, batch_items=8, device="cuda"):
+    def __init__(self, model, params, batch_items=8, device="cuda",
+                 quantize=None, calib_feed=None, act_ranges=None):
         self.device = resolve_device(device)
         self.model = model
         self.params = _to_device(params, self.device)
-        self.batch_items = int(batch_items)
+        sizes = batch_items if isinstance(batch_items, (list, tuple)) \
+            else [batch_items]
+        self.buckets = sorted({int(b) for b in sizes})
+        if not self.buckets or self.buckets[0] < 1:
+            error("batch sizes must be >= 1 (got %s)" % (batch_items,))
+        self.batch_items = self.buckets[-1]
+        self.quantize = check_quantize(quantize)
+        if self.quantize != "int8_static" and \
+                (calib_feed is not None or act_ranges is not None):
+            error("calib_feed and act_ranges calibrate int8_static only "
+                  "(quantize=%r)" % (self.quantize,))
         self.last_bucket = None
         self._pre = {}
         inputs = []
@@ -165,13 +198,28 @@ class ServingModule:
             "inputs": inputs,
             "output": output,
             "batch_items": self.batch_items,
-            "buckets": [self.batch_items],
+            "buckets": list(self.buckets),
             "num_classes": num_classes,
             "frames_per_clip": int(model.visual_sources()[0][2].fpc),
             "clips_per_item": int(model.visual_sources()[0][2].cpv),
             "compute_dtype": str(model.settings.compute_dtype),
+            "quantize": self.quantize,
             "model": model_spec(model.settings),
         }
+        self._params = self.params
+        if self.quantize == "int8_static":
+            if act_ranges is None:
+                if calib_feed is None:
+                    error("quantize: int8_static requires a calibration "
+                          "batch; this entry point quantizes without one "
+                          "— use 'int8' (dynamic scales) here")
+                act_ranges = self._calibrate(calib_feed)
+            act_ranges = {p: {k: float(v) for k, v in t.items()}
+                          for p, t in act_ranges.items()}
+            self.meta["act_ranges"] = act_ranges
+        if self.quantize:
+            self._params = model.quantize_params(self.params,
+                                                 act_ranges=act_ranges)
 
     def _input_tensor(self, a, spec):
         dtype = _TORCH_DTYPES[spec["dtype"]]
@@ -180,16 +228,16 @@ class ServingModule:
                 np.asarray(a, dtype=spec["dtype"])))
         return a.to(device=self.device, dtype=dtype)
 
-    def __call__(self, *arrays):
-        """Logits (float32 numpy), or a captioner's (items, T) int32 word
-        indices, for the items in ``arrays``; each array is numpy or a
-        tensor, with a leading dim up to the static one."""
+    def _tensors(self, arrays):
+        """The arrays of a call as tensors on the device, checked against
+        the largest bucket's input specs, and the share of that bucket
+        they fill."""
         ins = self.meta["inputs"]
         if len(arrays) != len(ins):
             error("Serving module takes %d inputs %s; got %d"
                   % (len(ins), [i["name"] for i in ins], len(arrays)))
         frac = None
-        feed = {}
+        tensors = []
         for a, spec in zip(arrays, ins):
             want = tuple(spec["shape"])
             shape = tuple(a.shape)
@@ -201,24 +249,57 @@ class ServingModule:
                 frac = f
             elif abs(f - frac) > 1e-9:
                 error("Inconsistent partial batch across inputs")
-            t = self._input_tensor(a, spec)
-            if shape[0] < want[0]:
-                t = torch.cat([t, t.new_zeros((want[0] - shape[0],)
-                                              + want[1:])])
-            feed[spec["name"]] = t
-        self.last_bucket = self.batch_items
+            tensors.append(self._input_tensor(a, spec))
+        return tensors, frac
+
+    def _forward(self, feed, params, **kw):
+        """Device preprocessing and the model on a feed of device
+        tensors; a captioner decodes."""
         with torch.inference_mode():
             for key, pre in self._pre.items():
                 feed[key] = pre(feed[key], feed.pop(key + "/proc_params"))
-            if self.model.caption_dataset is not None:
-                out = self.model.apply(self.params, feed, train=False,
-                                       decode=True)
-                out = out.to(torch.int32).cpu().numpy()
-            else:
-                out = self.model.apply(self.params, feed, train=False)
-                out = out.to(torch.float32).cpu().numpy()
-        if frac < 1:
-            out = out[:max(int(round(out.shape[0] * frac)), 1)]
+            return self.model.apply(
+                params, feed, train=False,
+                decode=self.model.caption_dataset is not None, **kw)
+
+    def _calibrate(self, arrays):
+        """{pipeline: {layer: amax}} of one float forward over the
+        positional ``arrays`` (as many items as they hold, no padding)."""
+        tensors, _ = self._tensors(arrays)
+        taps = {}
+        self._forward({s["name"]: t for s, t in
+                       zip(self.meta["inputs"], tensors)}, self.params,
+                      calib_taps=taps)
+        if not taps:
+            error("int8_static calibration collected no activation "
+                  "ranges — no pipeline has an int8-capable frame "
+                  "encoder (DCNN)")
+        return taps
+
+    def __call__(self, *arrays):
+        """Logits (float32 numpy), or a captioner's (items, T) int32 word
+        indices, for the items in ``arrays``; each array is numpy or a
+        tensor, with a leading dim up to the largest bucket's.  The call
+        runs at the smallest bucket that holds it."""
+        tensors, frac = self._tensors(arrays)
+        cap = self.batch_items
+        bucket = next(b for b in self.buckets if b + 1e-9 >= frac * cap)
+        self.last_bucket = bucket
+        feed = {}
+        for t, spec in zip(tensors, self.meta["inputs"]):
+            rows = int(spec["shape"][0]) * bucket // cap
+            if t.shape[0] < rows:
+                t = torch.cat([t, t.new_zeros((rows - t.shape[0],)
+                                              + tuple(t.shape[1:]))])
+            feed[spec["name"]] = t
+        out = self._forward(feed, self._params, quantize=self.quantize)
+        if self.model.caption_dataset is not None:
+            out = out.to(torch.int32).cpu().numpy()
+        else:
+            out = out.to(torch.float32).cpu().numpy()
+        kept = frac * cap / bucket
+        if kept < 1:
+            out = out[:max(int(round(out.shape[0] * kept)), 1)]
         return out
 
     def captions_from_ids(self, rows):
@@ -242,13 +323,18 @@ class ServingModule:
         return self.captions_from_ids(self(*arrays))
 
     def warmup(self):
-        """Run zeros through the full static batch; returns the output."""
-        return self(*[np.zeros(s["shape"], s["dtype"])
-                      for s in self.meta["inputs"]])
+        """Run zeros through every bucket, smallest first; returns the
+        largest bucket's output."""
+        for bucket in self.buckets:
+            out = self(*[np.zeros([s["shape"][0] * bucket //
+                                   self.batch_items] + s["shape"][1:],
+                                  s["dtype"])
+                         for s in self.meta["inputs"]])
+        return out
 
     def save(self, path):
-        """Write the artifact: meta.json + params.npz (JAX names and
-        layouts)."""
+        """Write the artifact: meta.json + params.npz (the float
+        parameters, JAX names and layouts)."""
         buf = io.BytesIO()
         np.savez(buf, **to_jax_flat(self.params))
         embeddings = {d.tag: d.embedding_matrix
@@ -264,7 +350,8 @@ class ServingModule:
 
 
 def load(path, device="cuda"):
-    """Rebuild a ServingModule from an artifact written by ``save``."""
+    """Rebuild a ServingModule from an artifact written by ``save``: its
+    buckets, and its quantize mode with the stored activation ranges."""
     device = resolve_device(device)
     with zipfile.ZipFile(path) as z:
         meta = json.loads(z.read(_META_NAME).decode("utf-8"))
@@ -281,7 +368,10 @@ def load(path, device="cuda"):
               % (path, FORMAT, meta.get("format")))
     model = Model(settings_from_spec(meta["model"], embeddings))
     module = ServingModule(model, unflatten_tree(from_jax_flat(flat, device)),
-                           batch_items=meta["batch_items"], device=device)
+                           batch_items=meta.get("buckets",
+                                                meta["batch_items"]),
+                           device=device, quantize=meta.get("quantize"),
+                           act_ranges=meta.get("act_ranges"))
     if module.meta["inputs"] != meta["inputs"]:
         error("Artifact inputs %s do not match the rebuilt model's %s"
               % (meta["inputs"], module.meta["inputs"]))

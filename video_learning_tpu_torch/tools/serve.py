@@ -1,17 +1,21 @@
 """HTTP serving over a ``ServingModule`` with request coalescing.
 
-Counterpart of ``video_learning_tpu/tools/serve.py:60-502``:
+Counterpart of ``video_learning_tpu/tools/serve.py``:
 
   python -m video_learning_tpu_torch.tools.serve model.zip --port 8000 \
       [--device cuda] [--classes map.txt] [--window-ms 3] [--no-batch] \
       [--request-timeout-s 30]
+  python -m video_learning_tpu_torch.tools.serve model.zip --selftest \
+      [--selftest-items 1,8,32] [--selftest-duration-s 8] \
+      [--selftest-concurrency 8]
 
-The serving module runs a static batch of ``batch_items`` items (short
-batches are zero-padded).  Traffic is mostly single items, so a
-micro-batcher coalesces concurrent requests that arrive within a short
-window into one device call up to that capacity, then splits the output
-rows back per request.  The HTTP layer uses the standard library and
-numpy only.
+The serving module runs static batches (its buckets, up to
+``batch_items`` items; a call runs at the smallest bucket that holds it,
+zero-padded).  Traffic is mostly single items, so a micro-batcher
+coalesces concurrent requests that arrive within a short window into one
+device call up to the largest bucket, then splits the output rows back
+per request.  The server warms every bucket before it answers.  The HTTP
+layer uses the standard library and numpy only.
 
 Endpoints:
 
@@ -32,11 +36,16 @@ Endpoints:
                  respond JSON, or .npz with ?format=npz.
 
 Each request carries 1..batch_items items: leading dims must be whole
-multiples of the per-item row counts in ``meta['inputs']``.  ``selftest``
-(the loopback load test) is not ported yet.
+multiples of the per-item row counts in ``meta['inputs']``.
+
+``--selftest`` runs the loopback load test instead of serving: the
+server in-process on an ephemeral port, closed-loop client threads
+posting npz bodies of each request size, and one JSON line per size with
+the sustained requests/s, items/s and p50 / p99 latency.
 """
 
 import argparse
+import http.client
 import io
 import json
 import queue
@@ -441,9 +450,11 @@ def serve(module, port=8000, host="127.0.0.1", classes=None, window_ms=3.0,
         block_on_close = True
 
     idx2name = load_class_map(classes) if classes else None
-    info("Serving module (inputs=%s, batch_items=%s); warming up..."
+    info("Serving module (inputs=%s, batch_items=%s, buckets=%s, "
+         "quantize=%s); warming up..."
          % ([i["name"] for i in module.meta["inputs"]],
-            module.meta["batch_items"]))
+            module.meta["batch_items"], module.meta.get("buckets"),
+            module.meta.get("quantize")))
     batcher = Batcher(module, window_s=window_ms / 1000.0, coalesce=coalesce,
                       request_timeout_s=request_timeout_s)
     httpd = _Server((host, port), make_handler(batcher, idx2name))
@@ -478,6 +489,116 @@ def serve(module, port=8000, host="127.0.0.1", classes=None, window_ms=3.0,
     return httpd
 
 
+def selftest(module, item_counts=(1, 8, 32), duration_s=8.0, concurrency=8,
+             window_ms=3.0, classes=None, device="cuda"):
+    """Loopback load test: start the server in-process on an ephemeral
+    port over ``module`` (a ServingModule or an artifact path, loaded onto
+    ``device``), drive it with ``concurrency`` closed-loop client threads
+    posting npz bodies of each request size for ``duration_s`` seconds,
+    and report the sustained requests/s, items/s, p50 and p99 latency
+    per size (one JSON line each, and the list of rows returned).  What
+    it measures beyond a device call: request parsing, the coalescing
+    window, response encoding and the sockets.  Item counts beyond the
+    module's capacity are clamped (a request cannot exceed one batch)."""
+    if isinstance(module, str):
+        from video_learning_tpu_torch.serving import load
+        module = load(module, device=device)
+    capacity = int(module.meta["batch_items"])
+    per = [int(s["shape"][0]) // capacity for s in module.meta["inputs"]]
+
+    def body_for(n):
+        rng = np.random.RandomState(n)
+        arrays = {s["name"]: rng.randint(
+            0, 200, (p * n,) + tuple(s["shape"][1:])).astype(s["dtype"])
+            for p, s in zip(per, module.meta["inputs"])}
+        buf = io.BytesIO()
+        np.savez(buf, **arrays)
+        return buf.getvalue()
+
+    started = threading.Event()
+    server_thread = threading.Thread(
+        target=serve, args=(module,),
+        kwargs=dict(port=0, classes=classes, window_ms=window_ms,
+                    started=started), daemon=True)
+    server_thread.start()
+    if not started.wait(timeout=300):
+        error("selftest server did not start")
+    host, port = started.addr
+    headers = {"Content-Type": "application/x-npz"}
+    results = []
+    try:
+        for n in item_counts:
+            n = min(int(n), capacity)
+            body = body_for(n)
+            lat, errs = [], [0]
+            lock = threading.Lock()
+
+            def client():
+                conn = http.client.HTTPConnection(host, port, timeout=120)
+                mine = []
+                while time.monotonic() < stop_at:
+                    t0 = time.monotonic()
+                    try:
+                        conn.request("POST", "/predict", body=body,
+                                     headers=headers)
+                        r = conn.getresponse()
+                        r.read()
+                        ok = r.status == 200
+                    except (OSError, http.client.HTTPException):
+                        ok = False
+                        conn.close()
+                        conn = http.client.HTTPConnection(host, port,
+                                                          timeout=120)
+                    if ok:
+                        mine.append(time.monotonic() - t0)
+                    else:
+                        with lock:
+                            errs[0] += 1
+                conn.close()
+                with lock:
+                    lat.extend(mine)
+
+            # one request first: the size's first call outside the window
+            warm = http.client.HTTPConnection(host, port, timeout=300)
+            try:
+                warm.request("POST", "/predict", body=body, headers=headers)
+                resp = warm.getresponse()
+                resp.read()
+            finally:
+                warm.close()
+            if resp.status != 200:
+                error("selftest warm-up request answered %d" % resp.status)
+            stop_at = time.monotonic() + duration_s
+            threads = [threading.Thread(target=client)
+                       for _ in range(concurrency)]
+            t_start = time.monotonic()
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+            elapsed = time.monotonic() - t_start
+            lat.sort()
+            row = {
+                "items_per_request": n,
+                "concurrency": concurrency,
+                "duration_s": elapsed,
+                "requests": len(lat),
+                "errors": errs[0],
+                "rps": len(lat) / elapsed,
+                "items_per_sec": len(lat) * n / elapsed,
+                "p50_ms": 1e3 * lat[len(lat) // 2] if lat else None,
+                "p99_ms": 1e3 * lat[int(len(lat) * 0.99)] if lat else None,
+            }
+            results.append(row)
+            print(json.dumps(row), flush=True)
+    finally:
+        started.httpd.shutdown()
+        server_thread.join(timeout=60)
+    if server_thread.is_alive():
+        error("selftest server did not stop")
+    return results
+
+
 def main(argv=None):
     ensure_console_logging()
     parser = argparse.ArgumentParser(
@@ -496,7 +617,24 @@ def main(argv=None):
                         help="micro-batch coalescing window")
     parser.add_argument("--no-batch", action="store_true",
                         help="disable coalescing (serialize requests)")
+    parser.add_argument("--selftest", action="store_true",
+                        help="loopback load test instead of serving: "
+                             "prints one JSON line per request size "
+                             "with sustained RPS and p50/p99 latency")
+    parser.add_argument("--selftest-items", default="1,8,32",
+                        help="comma list of items per request")
+    parser.add_argument("--selftest-duration-s", type=float, default=8.0)
+    parser.add_argument("--selftest-concurrency", type=int, default=8)
     args = parser.parse_args(argv)
+    if args.selftest:
+        selftest(args.artifact,
+                 item_counts=[int(x) for x in
+                              args.selftest_items.split(",") if x],
+                 duration_s=args.selftest_duration_s,
+                 concurrency=args.selftest_concurrency,
+                 window_ms=args.window_ms, classes=args.classes,
+                 device=args.device)
+        return
     serve(args.artifact, port=args.port, host=args.host,
           classes=args.classes, window_ms=args.window_ms,
           coalesce=not args.no_batch,
