@@ -67,6 +67,25 @@ Phases (each raises on failure; nothing is caught and passed over):
    bf16 one, and 2 items in float32 decode the same tokens on the card
    and the CPU (phase 6's tie rule).  Which shapes ``torch._int_mm``
    itself refuses on the card is printed.
+8. training from a packed dataset: 424 one-clip videos of 16 240x320x3
+   uint8 frames from a seeded numpy stream (1.56 GB, written by the
+   port's ``RecordWriter`` into a temporary directory that is checked
+   for space first and removed at the end), a JSON run config of phase
+   5's training configuration with a new order every epoch, and the
+   port's ``Settings().initialize`` -> ``Model`` -> ``Train`` ->
+   ``FeedPrefetcher(prepare_fn=Train.prepare_device_feed)`` ->
+   ``run_step`` over one epoch: the native reader is active, the batch
+   plan is [128, 128, 128, 40], the tail is padded to 128 rows with 40
+   ``label_mask`` ones, each step launches exactly phase 5's kernels
+   with the plain versions locked out, every loss is finite; the fed
+   steps are timed beside phase 5's, the feeder alone (``get_feed`` plus
+   ``prepare_device_feed``, with pinned ring buffers and with fresh
+   pageable ones) in ms per batch and host-to-device GB/s, one fed step
+   is profiled (the card's idle share), the process's peak host RSS is
+   read; a second ``Settings`` resumed from a hand-written ``.snap``
+   [2, 0, 2] reads batch 2's frames and labels first (and batch 0's
+   crop and mirror draws: resume leaves the draw stream at its start,
+   as the JAX package does).
 
 The line before the last lists every ported kernel as JSON (launches per
 serving forward for lrn and lstm_step, per training step for the
@@ -80,7 +99,10 @@ import http.client
 import io
 import json
 import math
+import os
 import random
+import resource
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -92,12 +114,16 @@ import torch
 import torch.nn.functional as F
 
 from video_learning_tpu_torch import checkpoint, serving
+from video_learning_tpu_torch.config import Settings
+from video_learning_tpu_torch.data import native_io, records
+from video_learning_tpu_torch.data.prefetch import FeedPrefetcher
 from video_learning_tpu_torch.defs import defs
 from video_learning_tpu_torch.flagship import (SERVING_IMGPROC, SERVING_MEAN,
                                                caption_feed,
                                                caption_flagship, flagship)
 from video_learning_tpu_torch.models import alexnet, layers
 from video_learning_tpu_torch.models import lstm as decode_mod
+from video_learning_tpu_torch.models.pipeline import Model
 from video_learning_tpu_torch.ops import _build
 from video_learning_tpu_torch.ops import conv1_dw as conv1_mod
 from video_learning_tpu_torch.ops import int8_mm as int8_mod
@@ -1820,6 +1846,284 @@ def phase_int8_caption(results):
         "flips": flips}
 
 
+# ------------------------------------------------------------- phase 8
+FED_PLAN = [TRAIN_CLIPS] * 3 + [40]     # 424 one-clip videos, 128 a batch
+FED_SEED = 8
+FED_WANT = {"lrn": 2, "lrn_bwd": 2, "lstm_step": FPC * LAYERS,
+            "conv1_dw": 0, "conv1_dw_shifted": 1}
+
+
+def pack_videos(folder, videos, seed):
+    """``videos`` one-clip videos of FPC 240x320x3 uint8 frames and a
+    label each, from one seeded numpy stream, packed by the port's
+    RecordWriter with the ``.size`` sidecar and a paths file.  Returns
+    the paths file (a dataset's ``data_path``)."""
+    frame_bytes = RAW_HW[0] * RAW_HW[1] * 3
+    need = videos * FPC * (frame_bytes + 64)
+    free = shutil.disk_usage(folder).free
+    if free < need + (1 << 30):
+        raise RuntimeError("phase 8 packs %.2f GB into %s, which has %.2f "
+                           "GB free" % (need / 1e9, folder, free / 1e9))
+    base = os.path.join(folder, "videos.train")
+    rng = np.random.default_rng(seed)
+    labels = rng.integers(0, CLASSES, videos)
+    with records.RecordWriter(base + ".tfrecord") as w:
+        for v in range(videos):
+            clip = rng.integers(0, 256, (FPC,) + RAW_HW + (3,), np.uint8)
+            for frame in clip:
+                w.write(records.encode_image_example(frame, int(labels[v])))
+    records.write_size_file(videos, [1] * videos, base + ".tfrecord",
+                            defs.input_mode.video, 1, FPC)
+    with open(base, "w") as f:
+        f.write("".join("vid%04d %d\n" % (v, labels[v])
+                        for v in range(videos)))
+    return base
+
+
+def fed_config(folder, data_path, name, resume_file=None):
+    """A JSON run config with ``config.example.yml``'s ``run:`` schema:
+    the flagship pipelines of ``bench.py`` (AlexNet to fc7, 2x256 LSTM,
+    avg fusion), bf16, SGD at lr 0.001 with a global-norm clip of 10,
+    dropout 0.5, random crop and mirror with the mean subtracted on the
+    card, a new order every epoch.  Returns its path."""
+    run = {
+        "resume_file": resume_file,
+        "run_folder": os.path.join(folder, "run"),
+        "phase": "defs.phase.train", "seed": 0,
+        "mesh_shape": {"data": 1, "model": 1}, "compute_dtype": "bfloat16",
+        "data": {"packed-train": {
+            "data_path": data_path, "prepend_folder": "",
+            "raw_image_shape": "(%d, %d, 3)" % RAW_HW,
+            "image_shape": "(%d, %d, 3)" % (IMAGE, IMAGE),
+            "mean_image": list(SERVING_MEAN),
+            "data_format": "defs.data_format.tfrecord",
+            "frame_format": "jpg",
+            "imgproc": ["defs.imgproc.rand_crop", "defs.imgproc.rand_mirror",
+                        "defs.imgproc.sub_mean"],
+            "batch_item": "defs.batch_item.default",
+            "phase": "defs.phase.train", "tag": "defs.dataset_tag.main",
+            "device_preprocess": True, "epoch_shuffle": True}},
+        "network": {"num_classes": CLASSES, "pipelines": [
+            {"frames": {"input": "defs.dataset_tag.main",
+                        "representation": "defs.representation.dcnn",
+                        "frame_encoding_layer": "fc7"}},
+            {"clf": {"input": "frames",
+                     "representation": "defs.representation.nop",
+                     "classifier": "defs.classifier.lstm",
+                     "lstm_params": [HIDDEN, LAYERS,
+                                     "defs.fusion_method.avg"]}}]},
+        "train": {"batch_size": TRAIN_CLIPS, "epochs": 2,
+                  "optimizer": "defs.optim.sgd", "base_lr": 0.001,
+                  "lr_mult": "None", "clip_norm": 10,
+                  "dropout_keep_prob": 0.5},
+        "logging": {"save_freq_per_epoch": 1, "level": "logging.WARN"}}
+    path = os.path.join(folder, name)
+    with open(path, "w") as f:
+        json.dump({"run": run}, f, indent=1)
+    return path
+
+
+def fed_epoch(feeder, engine, model, kept, epoch):
+    """One epoch of fed steps through FeedPrefetcher and
+    ``prepare_device_feed``, each with the counts at 0 just before it
+    and the plain versions locked out: checks the batch plan, the tail's
+    padding and mask, the launches and the metrics, and keeps the first
+    epoch's batches 0 and 2 in ``kept``.  Returns the host-clock wall of
+    each step (from the previous step's end, the wait for the batch
+    included) and each wait."""
+    key = model.required_input[0][0]
+    walls, waits = [], []
+    torch.cuda.synchronize()
+    t_prev = time.monotonic()
+    for feed, batches, index in FeedPrefetcher(
+            feeder, model.required_input,
+            prepare_fn=engine.prepare_device_feed):
+        waits.append(time.monotonic() - t_prev)
+        if epoch == 0 and index in (0, 2):
+            kept[index] = {k: feed[k].clone() for k in
+                           (key, key + "/proc_params", "labels")}
+        rows = int(feed["labels"].shape[0])
+        valid = int(feed["label_mask"].sum())
+        if rows != TRAIN_CLIPS or valid != FED_PLAN[index] or \
+                feed[key].shape[0] != TRAIN_CLIPS * FPC or \
+                not bool(feed["label_mask"][:valid].all()):
+            raise AssertionError("batch %d: %d label rows, %d valid, %d "
+                                 "frames" % (index, rows, valid,
+                                             feed[key].shape[0]))
+        metrics, launched = locked_step(engine, feed)
+        now = time.monotonic()
+        walls.append(now - t_prev)
+        t_prev = now
+        variants = dict(lrn_mod.lrn_backward.variant_launches)
+        log("  epoch %d batch %d (%d clips, %d padded): %.1f ms (%.1f of "
+            "them waiting for the batch), %s; launched %s"
+            % (epoch + 1, index, valid, rows - valid, walls[-1] * 1e3,
+               waits[-1] * 1e3, metrics, launched))
+        if launched != FED_WANT or variants != {"staged": 0, "vector": 2}:
+            raise AssertionError("fed step launched %s (%s), expected %s"
+                                 % (launched, variants, FED_WANT))
+        if not all(math.isfinite(v) for v in metrics.values()):
+            raise AssertionError("non-finite metrics %s" % metrics)
+    if len(walls) != len(FED_PLAN):
+        raise AssertionError("%d fed steps in epoch %d" % (len(walls),
+                                                           epoch + 1))
+    return walls, waits
+
+
+def feeder_ms(feeder, engine, required_input):
+    """One epoch of the feeder alone: per batch, the host ms of
+    ``get_feed``, of ``prepare_device_feed`` (which returns once its copy
+    is done) and the feed's bytes."""
+    rows = []
+    while feeder.loop():
+        t0 = time.monotonic()
+        feed, batches = feeder.get_feed(required_input)
+        t1 = time.monotonic()
+        engine.prepare_device_feed(feed, batches)
+        t2 = time.monotonic()
+        rows.append({"get_feed_ms": (t1 - t0) * 1e3,
+                     "prepare_ms": (t2 - t1) * 1e3,
+                     "bytes": int(sum(v.nbytes for v in feed.values()))})
+    feeder.rewind_datasets(next_epoch=True)
+    full = rows[:-1]
+    out = {"batches": rows,
+           "get_feed_ms": float(np.mean([r["get_feed_ms"] for r in full])),
+           "prepare_ms": float(np.mean([r["prepare_ms"] for r in full]))}
+    out["h2d_gb_per_s"] = float(np.mean([r["bytes"] / r["prepare_ms"] / 1e6
+                                         for r in full]))
+    return out
+
+
+def device_busy_us(prof):
+    """Device time of the profiled window's kernels, copies left out."""
+    from torch.autograd import DeviceType
+    return sum(ev.self_device_time_total for ev in prof.key_averages()
+               if ev.device_type == DeviceType.CUDA and
+               not ev.key.startswith(("Memcpy", "Memset")))
+
+
+def phase_fed(results):
+    clips = sum(FED_PLAN)
+    log("phase 8: training from a packed dataset (%d one-clip videos x %d "
+        "frames of %dx%d, bf16)" % ((clips, FPC) + RAW_HW))
+    rss0 = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+    with tempfile.TemporaryDirectory(prefix="vlt_phase8_") as folder:
+        t0 = time.monotonic()
+        data_path = pack_videos(folder, clips, FED_SEED)
+        size = os.path.getsize(data_path + ".tfrecord")
+        results["fed_pack_s"] = time.monotonic() - t0
+        log("  packed %.2f GB in %.1f s" % (size / 1e9,
+                                            results["fed_pack_s"]))
+        t0 = time.monotonic()
+        settings = Settings()
+        feeder = settings.initialize(fed_config(folder, data_path,
+                                                "run.json"))
+        model = Model(settings)
+        engine = Train(settings, feeder, model, device="cuda")
+        dset = feeder.get_datasets()[0]
+        log("  Settings -> Model -> Train: %.1f s; native reader %s"
+            % (time.monotonic() - t0, native_io.lib_path))
+        if dset.native_reader is None:
+            raise AssertionError("the native record reader is not active")
+        if dset.batches != FED_PLAN:
+            raise AssertionError("batch plan %s, expected %s"
+                                 % (dset.batches, FED_PLAN))
+        # two epochs: the first pays the first uses (the pinned ring's
+        # slots, made as they are first filled); each starts with a read
+        # and copy that nothing overlaps, and its last two steps (the
+        # third full batch and the tail, both 128 rows) run with the
+        # prefetch queue ahead of them
+        key = model.required_input[0][0]
+        kept, walls, waits = {}, [], []
+        for epoch in range(2):
+            w, q = fed_epoch(feeder, engine, model, kept, epoch)
+            walls.append(w)
+            waits.append(q)
+            feeder.rewind_datasets(next_epoch=True)
+        if dset.native_reader is None:
+            raise AssertionError("the native reader fell back")
+        steady = float(np.mean(walls[1][2:]))
+        results["fed_step_ms"] = [[x * 1e3 for x in w] for w in walls]
+        results["fed_wait_ms"] = [[x * 1e3 for x in q] for q in waits]
+        results["fed_full_step_ms_mean"] = [float(np.mean(w[:3])) * 1e3
+                                            for w in walls]
+        results["fed_epoch_step_ms_mean"] = [float(np.mean(w)) * 1e3
+                                             for w in walls]
+        results["fed_steady_step_ms"] = steady * 1e3
+        for epoch, w in enumerate(walls):
+            log("  epoch %d, three full fed steps: %s ms (mean %.2f; over "
+                "the epoch's %d steps %.2f)"
+                % (epoch + 1, ", ".join("%.2f" % (x * 1e3) for x in w[:3]),
+                   results["fed_full_step_ms_mean"][epoch], len(w),
+                   results["fed_epoch_step_ms_mean"][epoch]))
+        log("  fed step with the queue ahead (epoch 2, steps 3-4) %.2f ms "
+            "= %.1f clips/s; phase 5's step on card-made inputs: %.2f ms"
+            % (steady * 1e3, TRAIN_CLIPS / steady, results["train_step_ms"]))
+
+        # the feeder alone: pinned ring (the default for a CUDA feed),
+        # then fresh pageable arrays per batch
+        for mode, flag in (("pinned", None), ("pageable", "0")):
+            if flag is not None:
+                os.environ["VLT_REUSE_READ_BUFFERS"] = flag
+            try:
+                res = feeder_ms(feeder, engine, model.required_input)
+            finally:
+                os.environ.pop("VLT_REUSE_READ_BUFFERS", None)
+            results["fed_feeder_" + mode] = res
+            log("  feeder alone, %s read buffers: get_feed %.1f ms + "
+                "prepare_device_feed %.1f ms per %d-clip batch; host to "
+                "device %.2f GB/s" % (mode, res["get_feed_ms"],
+                                      res["prepare_ms"], TRAIN_CLIPS,
+                                      res["h2d_gb_per_s"]))
+
+        # the card's idle share in one fed step (the next batch being
+        # read and copied meanwhile)
+        batches_iter = iter(FeedPrefetcher(
+            feeder, model.required_input,
+            prepare_fn=engine.prepare_device_feed))
+        engine.run_step(next(batches_iter)[0])
+        feed = next(batches_iter)[0]
+        prof = profile_rows("one fed step", lambda: engine.run_step(feed),
+                            steady, results, "fed_profile", top=8)
+        busy = device_busy_us(prof)
+        results["fed_idle_share"] = 1.0 - busy / (steady * 1e6)
+        log("  kernels (copies left out) %.0f us of the %.2f ms fed step "
+            "with the queue ahead: idle share %.3f"
+            % (busy, steady * 1e3, results["fed_idle_share"]))
+        batches_iter.close()
+        del feed
+
+        # resume from a hand-written .snap [batch 2, epoch 0, step 2]
+        ckpt = os.path.join(folder, "run", "checkpoints", "resume.ckpt")
+        os.makedirs(os.path.dirname(ckpt), exist_ok=True)
+        with open(ckpt + ".snap", "w") as f:
+            json.dump([2, 0, 2], f)
+        resumed = Settings()
+        feeder2 = resumed.initialize(fed_config(folder, data_path,
+                                                "resume.json", ckpt))
+        feed2, _ = feeder2.get_feed(model.required_input)
+        same = {k: bool(torch.equal(torch.from_numpy(feed2[k]).cuda(),
+                                    kept[2][k]))
+                for k in (key, "labels")}
+        # the JAX Dataset.restore leaves rng at its start, so a resumed
+        # run draws batch 0's crops and mirrors
+        same["proc_params (batch 0's)"] = bool(torch.equal(
+            torch.from_numpy(feed2[key + "/proc_params"]).cuda(),
+            kept[0][key + "/proc_params"]))
+        results["fed_resume"] = same
+        log("  resumed at [2, 0, 2]: global step %d; first batch equal to "
+            "batch 2: %s" % (resumed.global_step, same))
+        if resumed.global_step != 2 or not all(same.values()):
+            raise AssertionError("the resumed batch differs: %s" % same)
+        for d in feeder.get_datasets() + feeder2.get_datasets():
+            d.reader.close()
+            d.native_reader.close()
+    rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+    results["peak_host_rss_gb"] = rss / 1e6
+    log("  peak host RSS of the process %.2f GB (%.2f GB before phase 8)"
+        % (rss / 1e6, rss0 / 1e6))
+
+
 # ---------------------------------------------------------------- main
 def kernel_entry(name, source, replaces, launches, cases, main_cases):
     """One kernel's line entry.  Times and bounds are for the launches of
@@ -1878,6 +2182,11 @@ def main(argv=None):
     phase_int8(results)
     results["int8_phase_s"] = time.monotonic() - t0
     log("  phase 7 took %.1f s" % results["int8_phase_s"])
+    torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    phase_fed(results)
+    results["fed_phase_s"] = time.monotonic() - t0
+    log("  phase 8 took %.1f s" % results["fed_phase_s"])
 
     launches = dict(results["main_path_launches"],
                     lrn_bwd=results["train_launches"]["lrn_bwd"],

@@ -410,3 +410,71 @@ def test_int8_conv_on_the_card_matches_the_cpu(gen, groups, stride):
                                  out_dtype=torch.float32)
     torch.testing.assert_close(out.cpu(), ref, rtol=1e-6,
                                atol=1e-6 * float(ref.abs().max()))
+
+
+@pytest.mark.cuda
+def test_fed_feeds_from_the_pinned_ring_equal_the_records(gen, tmp_path):
+    """Twelve 1-clip batches (three times round the read-buffer ring)
+    through FeedPrefetcher and Train.prepare_device_feed onto the card:
+    the ring's slots are pinned, and every prepared feed, kept until the
+    epoch ends, equals the batch a second feeder reads on the host (a
+    slot rewritten under a copy would not)."""
+    import json
+
+    import numpy as np
+
+    from video_learning_tpu_torch.config import Settings
+    from video_learning_tpu_torch.data import records
+    from video_learning_tpu_torch.data.prefetch import FeedPrefetcher
+    from video_learning_tpu_torch.models.pipeline import Model
+    from video_learning_tpu_torch.train import Train
+
+    rs = np.random.RandomState(0)
+    base = str(tmp_path / "videos.train")
+    with records.RecordWriter(base + ".tfrecord") as w:
+        for v in range(12):
+            for _ in range(4):
+                w.write(records.encode_image_example(
+                    rs.randint(0, 256, (72, 80, 3), np.uint8), v % 3))
+    records.write_size_file(12, [1] * 12, base + ".tfrecord", "video", 1, 4)
+    with open(base, "w") as f:
+        f.write("".join("v%d %d\n" % (v, v % 3) for v in range(12)))
+    run = {"run_folder": str(tmp_path / "run"), "phase": "defs.phase.train",
+           "compute_dtype": "float32",
+           "data": {"d": {"data_path": base, "raw_image_shape": "(72, 80, 3)",
+                          "image_shape": "(67, 67, 3)",
+                          "mean_image": [104.0, 117.0, 123.0],
+                          "data_format": "defs.data_format.tfrecord",
+                          "imgproc": ["defs.imgproc.rand_crop",
+                                      "defs.imgproc.sub_mean"],
+                          "phase": "defs.phase.train",
+                          "tag": "defs.dataset_tag.main",
+                          "device_preprocess": True, "epoch_shuffle": True}},
+           "network": {"num_classes": 3, "pipelines": [
+               {"frames": {"input": "defs.dataset_tag.main",
+                           "representation": "defs.representation.dcnn",
+                           "frame_encoding_layer": "fc7"}},
+               {"clf": {"input": "frames",
+                        "representation": "defs.representation.nop",
+                        "classifier": "defs.classifier.lstm",
+                        "lstm_params": [16, 2, "defs.fusion_method.avg"]}}]},
+           "train": {"batch_size": 1, "epochs": 1,
+                     "optimizer": "defs.optim.sgd", "base_lr": 0.01}}
+    cfg = tmp_path / "run.json"
+    cfg.write_text(json.dumps({"run": run}))
+    settings, host = Settings(), Settings()
+    feeder = settings.initialize(str(cfg))
+    host.initialize(str(cfg))
+    model = Model(settings)
+    engine = Train(settings, feeder, model, device="cuda")
+    prepared = [feed for feed, _, _ in FeedPrefetcher(
+        feeder, model.required_input, prepare_fn=engine.prepare_device_feed)]
+    ring = next(iter(feeder.get_datasets()[0]._buf_pools.values()))[0]
+    assert all(torch.from_numpy(slot[0]).is_pinned() for slot in ring)
+    assert len(prepared) == 12
+    for feed in prepared:
+        want, _ = host.feeder.get_feed(model.required_input)
+        for k, v in want.items():
+            assert torch.equal(feed[k].cpu(), torch.from_numpy(v)), k
+    metrics = engine.run_step(prepared[-1])
+    assert all(np.isfinite(v) for v in metrics.values())

@@ -66,6 +66,60 @@ def test_training_slice_modules_are_checked():
         assert not roots & {"jax", "jaxlib", "optax", "video_learning_tpu"}
 
 
+def test_data_slice_modules_are_checked():
+    """The config loader and data layer's modules are among the sources
+    checked above, import neither JAX, optax nor the JAX package, and
+    nothing of yaml or PIL at module level."""
+    sources = {os.path.relpath(p, REPO) for p in _port_sources()}
+    for rel in ("video_learning_tpu_torch/config.py",
+                "video_learning_tpu_torch/parse_opts.py",
+                "video_learning_tpu_torch/batching.py",
+                "video_learning_tpu_torch/data/records.py",
+                "video_learning_tpu_torch/data/native_io.py",
+                "video_learning_tpu_torch/data/imgproc.py",
+                "video_learning_tpu_torch/data/dataset.py",
+                "video_learning_tpu_torch/data/feeder.py",
+                "video_learning_tpu_torch/data/prefetch.py"):
+        assert rel in sources
+        found = _imported_modules(os.path.join(REPO, rel))
+        roots = {n.split(".")[0] for n, _ in found}
+        assert not roots & {"jax", "jaxlib", "optax", "video_learning_tpu"}
+        assert not {n.split(".")[0] for n, top in found if top} & \
+            {"yaml", "PIL"}, rel
+
+
+def test_json_config_loads_with_yaml_blocked(tmp_path):
+    """With yaml, PIL and JAX unimportable (the GPU machine has no
+    PyYAML), a JSON run config still loads through
+    ``Settings.initialize_from_file``."""
+    import json
+    run = {"run_folder": str(tmp_path / "run"), "phase": "defs.phase.train",
+           "data": {}, "network": {"num_classes": 3, "pipelines": [
+               {"frames": {"input": "defs.dataset_tag.main",
+                           "representation": "defs.representation.dcnn",
+                           "frame_encoding_layer": "fc7"}}]},
+           "train": {"batch_size": 2, "epochs": 1,
+                     "optimizer": "defs.optim.sgd", "base_lr": 0.1}}
+    cfg = tmp_path / "run.json"
+    cfg.write_text(json.dumps({"run": run}))
+    code = (
+        "import sys\n"
+        "for m in ('jax', 'jaxlib', 'optax', 'yaml', 'PIL',"
+        " 'video_learning_tpu'):\n"
+        "    sys.modules[m] = None\n"
+        "from video_learning_tpu_torch.config import Settings\n"
+        "s = Settings()\n"
+        "s.initialize_from_file(sys.argv[1])\n"
+        "print(s.num_classes, s.train.base_lr, s.pipeline_names)\n")
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    res = subprocess.run([sys.executable, "-c", code, str(cfg)], cwd=REPO,
+                         env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.split("\n")[-2] == "3 0.1 ['frames']"
+
+
 def test_no_yaml_or_pil_at_module_level():
     bad = ["%s imports %s at module level" % (os.path.relpath(p, REPO), n)
            for p in _port_sources() for n, top in _imported_modules(p)

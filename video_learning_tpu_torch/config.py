@@ -1,24 +1,38 @@
-"""Settings objects the pipelines DAG reads, without the YAML layer.
+"""Run configuration: Settings + Network (pipeline spec) loading.
 
-Counterpart of the fields of ``video_learning_tpu/config.py`` that
-``models/pipeline.Model``, the serving forward and the training engine
-(``train.py``) consume: per pipeline ``Network``, the run-level
-``Settings``, ``TrainOpts`` and ``ValOpts``.  Parsing a YAML
-``run:`` document into these objects is not ported yet; callers build
-them directly (``flagship.py``) or from a serving artifact's model spec
-(``serving.py``).
+The port's copy of ``video_learning_tpu/config.py``: the ``run:``
+document of a config file, its ``defs.*`` strings validated, the
+``network.pipelines`` DAG with unread-field rejection, the train/val
+option blocks and the ``data:`` entries, which become the ``Feeder``'s
+datasets (``Settings.initialize``).  The file is read as JSON when it is
+JSON and as YAML otherwise, PyYAML being imported only then: the GPU
+machine has no PyYAML, and a JSON file, which is also valid YAML, serves
+both packages.
 
-``GeometryDataset`` / ``GeometryFeeder`` stand in for the data layer: a
-dataset described by its frame geometry and preprocessing chain alone,
-which is all the DAG and the device preprocessor need, plus, for a
-captioning dataset, its vocabulary, word-embedding matrix and caption
-lengths (``CaptionOpts`` holds the run's decode options).
+Fields of the JAX package that the port reads and checks as it does,
+then leaves: ``compile_cache`` and ``remat`` (logged as ignored);
+``mesh_shape`` other than one device on every axis raises (not ported
+yet).  ``host_shards: auto`` takes the world size and rank of
+``torch.distributed`` when it is initialised, else one shard.
+
+``GeometryDataset`` / ``GeometryFeeder`` describe a dataset by its frame
+geometry and preprocessing chain alone (plus, for a captioning dataset,
+its vocabulary, word-embedding matrix and caption lengths), which is all
+the DAG and the device preprocessor need: the flagship builders
+(``flagship.py``) and serving artifacts (``serving.py``) use them.
 """
+
+import json
+import os
+import shutil
 
 import numpy as np
 
 from video_learning_tpu_torch.defs import defs
-from video_learning_tpu_torch.utils import error
+from video_learning_tpu_torch.parse_opts import parse_seq, parse_shape
+from video_learning_tpu_torch.utils import (as_num as _num,
+                                            configure_logging, debug, error,
+                                            get_datetime_str, info, warning)
 
 # the Network fields a pipeline spec carries (and a serving artifact
 # records, serving.model_spec)
@@ -48,6 +62,7 @@ class TrainOpts:
     max(|lo|, |hi|)."""
     batch_size = 100
     epochs = 15
+    epoch_index = 0
     optimizer = defs.optim.sgd
     base_lr = 0.001
     lr_decay = None
@@ -60,12 +75,20 @@ class TrainOpts:
     weight_decay = 0.0              # adamw decoupled decay (0 = off)
     dropout_keep_prob = 0.5
     batch_item = defs.batch_item.default
+    eval_every_epochs = 0           # inline validation cadence (0 = off)
+    early_stop_patience = 0         # stop after N non-improving evals
+    eval_keep_best = False          # keep best.ckpt at the best val acc
 
 
 class ValOpts:
     batch_size = 1
+    logits_save_interval = None
+    clip_fusion_type = None
+    clip_fusion_method = None
+    batch_item = defs.batch_item.default
     quantize = None                 # "int8"/"int8_static": w8a8 serving
     use_ema = False                 # evaluate the EMA weights
+    top_k = None                    # extra top-k accuracies, e.g. [5]
 
 
 def check_quantize(value):
@@ -85,33 +108,597 @@ class CaptionOpts:
     ``length_norm`` as the length-normalisation exponent)."""
     caption_search = defs.caption_search.max
     eval_type = defs.eval_type.coco
+    caption_ground_truth = None
+    word_embeddings_file = None
     caption_max_length = None
     beam_width = 4
     length_norm = 0.0
 
 
+def load_run_document(init_file):
+    """The ``run:`` document of a config file: parsed as JSON when the
+    file is JSON, else as YAML (PyYAML imported only here)."""
+    with open(init_file, "r") as f:
+        text = f.read()
+    try:
+        docs = json.loads(text)
+    except json.JSONDecodeError:
+        try:
+            import yaml
+        except ImportError:
+            error("%s is not JSON, and PyYAML is not installed to read it "
+                  "as YAML: write the run document as JSON" % init_file)
+        docs = yaml.safe_load(text)
+    if not isinstance(docs, dict) or "run" not in docs:
+        error("No run: document in %s" % init_file)
+    return docs["run"]
+
+
+def _host_shard_slot():
+    """(world size, rank) of an initialised torch.distributed group, else
+    (1, 0): the port's counterpart of jax.process_count/process_index."""
+    import torch.distributed as dist
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size(), dist.get_rank()
+    return 1, 0
+
+
 class Settings:
-    """Run settings the DAG reads."""
+    """Run settings: parses and validates the ``run:`` document and
+    instantiates the Feeder with its datasets.  Callers that build a
+    model without a config (``flagship.py``, ``serving.py``) set the
+    fields directly."""
 
     def __init__(self):
-        self.num_classes = None
+        self.run_id = ""
+        self.resume_file = None
+        self.run_folder = None      # where the lr schedule file goes
+        self.global_step = 0
+        self.feeder = None
         self.pipelines = {}
         self.pipeline_names = []
-        self.compute_dtype = "bfloat16"
-        self.print_tensors = False
-        self.feeder = None
-        self.phase = defs.phase.val
         self.train = None
         self.val = None
         self.captioning = None      # CaptionOpts of a captioning run
-        self.global_step = 0
-        self.run_id = ""
-        self.run_folder = None      # where the lr schedule file goes
+        self.phases = []
+        self.phase = defs.phase.val
+        self.num_classes = None
+        self.logging_level = "logging.INFO"
+        self.tensorboard_folder = "tensorboard"
+        self.tensorboard_events = False
+        self.print_tensors = False
+        self.watch_tensors = []
+        self.email_notify = None
+        self.save_freq_per_epoch = 1
+        self.profile_steps = None
+        self.timestamp = None
+        self.seed = 0
+        self.mesh_shape = None
+        self.compute_dtype = "bfloat16"
+        self.remat = False
+        self.compile_cache = None
+        self.checkpoint_backend = "npz"
+        self.checkpoint_async = False
+        self._inline_eval = False   # train-phase eval_every_epochs
+        self._pipeline_field_cache = []
 
+    # ------------------------------------------------------------- helpers
     def get_dropout(self):
         if self.phase == defs.phase.train:
             return self.train.dropout_keep_prob
         return 0.0
+
+    def should_resume(self):
+        return bool(self.resume_file)
+
+    # ------------------------------------------------------- field reading
+    def read_field(self, config, fieldname, validate=None, required=False,
+                   listify=False):
+        """Read + validate one pipeline field, recording it as read so
+        that unknown keys can be rejected."""
+        self._pipeline_field_cache.append(fieldname)
+        val = config.get(fieldname)
+        if val is None:
+            if required:
+                error("No value specified for required field [%s]" % fieldname)
+            return [None] if listify else None
+        if validate is not None:
+            if isinstance(validate, (list, tuple)):
+                val = list(val)
+                if len(validate) != len(val):
+                    error("Field [%s] requires %d entries, found: [%s]"
+                          % (fieldname, len(validate), str(val)))
+                val = [defs.check(el, v) for el, v in zip(val, validate)]
+            else:
+                val = defs.check(val, validate)
+        if listify and not isinstance(val, (list, tuple)):
+            val = [val]
+        return list(val) if listify else val
+
+    def read_network(self, pipeline_content):
+        """Parse one pipeline spec; an unread field is an error."""
+        network = Network()
+        self._pipeline_field_cache = []
+        network.input = self.read_field(pipeline_content, "input",
+                                        listify=True)
+        if any(x is None for x in network.input):
+            error("<None> or undefined <input> tag in pipeline: %s"
+                  % pipeline_content)
+        for i, inp in enumerate(network.input):
+            if inp in self.pipelines:
+                continue
+            is_tag, tagname = defs.check(inp, defs.dataset_tag,
+                                         do_boolean=True)
+            if is_tag:
+                network.input[i] = tagname
+            else:
+                error("Input identifier [%s] is not a dataset tag, and no "
+                      "such pipeline has been declared yet." % inp)
+
+        network.representation = self.read_field(
+            pipeline_content, "representation", required=True,
+            validate=defs.representation)
+        if network.representation == defs.representation.dcnn:
+            network.frame_encoding_layer = self.read_field(
+                pipeline_content, "frame_encoding_layer", required=True)
+        if network.representation == defs.representation.fc:
+            network.fc_output_dim = _num(
+                self.read_field(pipeline_content, "fc_output_dim",
+                                required=True),
+                "fc_output_dim", int, minimum=1)
+
+        network.classifier = self.read_field(pipeline_content, "classifier",
+                                             validate=defs.classifier)
+        if network.classifier == defs.classifier.lstm:
+            params = self.read_field(pipeline_content, "lstm_params")
+            if params is None:
+                error("LSTM classifier requires lstm_params")
+            if not isinstance(params, (list, tuple)) or len(params) < 3:
+                error("lstm_params needs [hidden_dim, num_layers, "
+                      "fusion_method(, visual_mode)], got: [%s]"
+                      % (params,))
+            network.lstm_params = [
+                _num(params[0], "lstm_params[0] (hidden_dim)", int, 1),
+                _num(params[1], "lstm_params[1] (num_layers)", int, 1),
+                defs.check(params[2], defs.fusion_method)]
+            # optional 4th entry: the captioner's visual conditioning
+            if len(params) > 3:
+                network.lstm_params.append(
+                    defs.check(params[3], defs.rnn_visual_mode))
+
+        network.weights_file = self.read_field(pipeline_content,
+                                               "weights_file")
+        # the alternate key of older configs
+        lw = self.read_field(pipeline_content, "load_weights")
+        if network.weights_file is None and lw is not None:
+            network.weights_file = lw
+        network.frame_fusion = self.read_field(
+            pipeline_content, "frame_fusion",
+            validate=(defs.fusion_type, defs.fusion_method))
+        raw_shapes = self.read_field(pipeline_content, "input_shape",
+                                     listify=True)
+        network.input_shape = [
+            None if shp in (None, "None") else parse_shape(shp)
+            for shp in raw_shapes]
+        network.input_fusion = self.read_field(pipeline_content,
+                                               "input_fusion",
+                                               validate=defs.fusion_method)
+
+        unread = [k for k in pipeline_content
+                  if k not in self._pipeline_field_cache]
+        if unread:
+            error("Undefined pipeline field(s): %s" % str(unread))
+        return network
+
+    # --------------------------------------------------------- main parser
+    def read_config(self, config, init_file):
+        self.resume_file = config.get("resume_file")
+        self.run_folder = config["run_folder"]
+        if config.get("run_id"):
+            self.run_id = config["run_id"]
+        self.seed = _num(config.get("seed", 0), "seed", int)
+        if config.get("mesh_shape"):
+            self.mesh_shape = dict(config["mesh_shape"])
+            if any(_num(v, "mesh_shape.%s" % k, int, minimum=1) != 1
+                   for k, v in self.mesh_shape.items()):
+                error("mesh_shape %s: meshes of more than one device are "
+                      "not ported yet (ROADMAP Queue 1, item 6)"
+                      % self.mesh_shape)
+        if config.get("compute_dtype"):
+            self.compute_dtype = str(config["compute_dtype"])
+        self.remat = bool(config.get("remat", False))
+        if self.remat:
+            info("remat: the port does not rematerialize the frame "
+                 "encoder; ignored")
+        self.compile_cache = config.get("compile_cache")
+        if self.compile_cache:
+            info("compile_cache is an XLA cache; the port ignores it")
+        self.checkpoint_backend = str(config.get("checkpoint_backend",
+                                                 "npz"))
+        if self.checkpoint_backend == "pickle":
+            # the historical name of the npz backend
+            self.checkpoint_backend = "npz"
+        if self.checkpoint_backend not in ("npz", "orbax"):
+            error("checkpoint_backend must be 'npz' or 'orbax'")
+        self.checkpoint_async = bool(config.get("checkpoint_async", False))
+
+        # phases + run id
+        self.phases = defs.check(config["phase"], defs.phase)
+        if not isinstance(self.phases, list):
+            self.phases = [self.phases]
+        self.phase = self.phases[0]
+        trainval_str = ""
+        if defs.phase.train in self.phases:
+            trainval_str = "train"
+        if defs.phase.val in self.phases:
+            trainval_str += "val"
+        trainval_str += "_resume" if self.should_resume() else "_scratch"
+        base = self.run_id if self.run_id else os.path.basename(init_file)
+        self.run_id = "_".join([base, trainval_str])
+
+        if not os.path.exists(self.run_folder):
+            warning("Non existent run folder %s - creating." % self.run_folder)
+            os.makedirs(self.run_folder, exist_ok=True)
+
+        # logging
+        logcfg = config.get("logging", {})
+        self.save_freq_per_epoch = _num(
+            logcfg.get("save_freq_per_epoch", 1),
+            "logging.save_freq_per_epoch", minimum=0.0)
+        self.logging_level = str(logcfg.get("level", "logging.INFO"))
+        valid_levels = ["logging." + x for x in ("INFO", "DEBUG", "WARN")]
+        if self.logging_level not in valid_levels:
+            error("Invalid logging level: %s" % self.logging_level)
+        self.tensorboard_folder = logcfg.get("tensorboard_folder",
+                                             "tensorboard")
+        self.tensorboard_events = bool(logcfg.get("tensorboard_events",
+                                                  False))
+        self.print_tensors = bool(logcfg.get("print_tensors", False))
+        self.watch_tensors = [str(p) for p in
+                              parse_seq(logcfg.get("watch_tensors")) or []]
+        profile = parse_seq(logcfg.get("profile"))
+        self.profile_steps = (
+            (_num(profile[0], "logging.profile[0]", int, 0),
+             _num(profile[1], "logging.profile[1]", int, 1))
+            if profile else None)
+        self.email_notify = logcfg.get("email_notify")
+        if self.email_notify:
+            if len(self.email_notify) != 2:
+                error("Need a sender and recipient email address, got [%s]"
+                      % self.email_notify)
+            warning("email_notify is not ported; no email is sent")
+        self.configure_logging()
+
+        # pipelines, in config order
+        for pipeline in config["network"]["pipelines"]:
+            pname, content = list(pipeline.items())[0]
+            debug("Reading network [%s]" % pname)
+            self.pipelines[pname] = self.read_network(content)
+            self.pipeline_names.append(pname)
+        self.num_classes = _num(config["network"]["num_classes"],
+                                "network.num_classes", int, minimum=1)
+
+        # per-phase option blocks
+        for phase in self.phases:
+            obj = config[phase]
+            if phase == defs.phase.train:
+                self.train = self._read_train_opts(obj)
+            if phase == defs.phase.val:
+                self.val = self._read_val_opts(obj)
+
+        # inline validation during training: eval_every_epochs runs the
+        # val phase on the live params every N training epochs
+        self._inline_eval = bool(self.train and
+                                 self.train.eval_every_epochs > 0)
+        if self._inline_eval:
+            if defs.phase.val in self.phases:
+                error("eval_every_epochs runs validation inline; use "
+                      "phase: defs.phase.train (not both phases)")
+            if "val" not in config:
+                error("eval_every_epochs needs a val: options block")
+            if "captioning" in config:
+                error("eval_every_epochs supports classification runs; "
+                      "evaluate captioners with "
+                      "tools/evaluate_multiple_checkpoints")
+            self.val = self._read_val_opts(config["val"])
+            if self.val.use_ema and not self.train.ema_decay:
+                error("val: use_ema needs train: ema_decay (no EMA "
+                      "shadow is maintained without it)")
+
+        if "captioning" in config:
+            self.captioning = self._read_caption_opts(config["captioning"])
+
+        self._read_datasets(config)
+
+    @staticmethod
+    def _read_train_opts(obj):
+        tr = TrainOpts()
+        tr.batch_size = _num(obj["batch_size"], "train.batch_size", int,
+                             minimum=1)
+        tr.epochs = _num(obj["epochs"], "train.epochs", int, minimum=0)
+        tr.optimizer = defs.check(obj["optimizer"], defs.optim)
+        wd = obj.get("weight_decay")
+        tr.weight_decay = (0.0 if wd in (None, "None")
+                           else _num(wd, "train.weight_decay"))
+        if tr.weight_decay < 0:
+            error("weight_decay must be >= 0 (got %s)" % tr.weight_decay)
+        if tr.weight_decay and tr.optimizer != defs.optim.adamw:
+            error("weight_decay is decoupled decay and needs "
+                  "optimizer: defs.optim.adamw (got %s)" % tr.optimizer)
+        tr.base_lr = _num(obj["base_lr"], "train.base_lr")
+        tr.lr_mult = (None if str(obj.get("lr_mult")) in ("None", "") or
+                      obj.get("lr_mult") is None
+                      else _num(obj["lr_mult"], "train.lr_mult"))
+        lr_decay = parse_seq(obj.get("lr_decay"))
+        if lr_decay is not None:
+            if len(lr_decay) < 4:
+                error("lr_decay needs [decay, periodicity, N, "
+                      "factor(, offset)], got: [%s]" % (lr_decay,))
+            parsed = [defs.check(lr_decay[0], defs.decay),
+                      defs.check(lr_decay[1], defs.periodicity),
+                      _num(lr_decay[2], "lr_decay[2]", int),
+                      _num(lr_decay[3], "lr_decay[3]")]
+            if len(lr_decay) > 4:
+                parsed.append(_num(lr_decay[4], "lr_decay[4]", int))
+            tr.lr_decay = parsed
+        tr.lr_warmup = _num(obj.get("lr_warmup", 0) or 0, "train.lr_warmup",
+                            int)
+        if tr.lr_warmup < 0:
+            error("lr_warmup must be >= 0 (got %d)" % tr.lr_warmup)
+        cn = obj.get("clip_norm")
+        tr.clip_norm = (None if cn in (None, "None")
+                        else _num(cn, "train.clip_norm"))
+        cg = parse_seq(obj.get("clip_grads"))
+        tr.clip_grads = (None if not cg or cg == [None]
+                         else (_num(cg[0], "train.clip_grads[0]"),
+                               _num(cg[1], "train.clip_grads[1]")))
+        tr.dropout_keep_prob = _num(obj.get("dropout_keep_prob", 0.5),
+                                    "train.dropout_keep_prob", minimum=0.0)
+        tr.accum_steps = _num(obj.get("accum_steps", 1), "train.accum_steps",
+                              int)
+        if tr.accum_steps < 1:
+            error("accum_steps must be >= 1 (got %d)" % tr.accum_steps)
+        if tr.batch_size % tr.accum_steps:
+            error("accum_steps (%d) must divide batch_size (%d): the batch "
+                  "is split into equal on-device micro-batches"
+                  % (tr.accum_steps, tr.batch_size))
+        ema = obj.get("ema_decay")
+        tr.ema_decay = (0.0 if ema in (None, "None")
+                        else _num(ema, "train.ema_decay"))
+        if tr.ema_decay and not 0.0 < tr.ema_decay < 1.0:
+            error("ema_decay must be in (0, 1) (got %s)" % tr.ema_decay)
+        tr.eval_every_epochs = _num(obj.get("eval_every_epochs", 0) or 0,
+                                    "train.eval_every_epochs", int)
+        if tr.eval_every_epochs < 0:
+            error("eval_every_epochs must be >= 0 (got %d)"
+                  % tr.eval_every_epochs)
+        tr.early_stop_patience = _num(obj.get("early_stop_patience", 0) or 0,
+                                      "train.early_stop_patience", int)
+        if tr.early_stop_patience and not tr.eval_every_epochs:
+            error("early_stop_patience needs eval_every_epochs "
+                  "(stopping is judged on inline val accuracy)")
+        tr.eval_keep_best = bool(obj.get("eval_keep_best", False))
+        if tr.eval_keep_best and not tr.eval_every_epochs:
+            error("eval_keep_best needs eval_every_epochs (best is judged "
+                  "on inline val accuracy)")
+        return tr
+
+    @staticmethod
+    def _read_val_opts(obj):
+        """Parse a ``val:`` options block (the val phase's, or the train
+        phase's inline eval_every_epochs)."""
+        va = ValOpts()
+        va.batch_size = _num(obj["batch_size"], "val.batch_size", int,
+                             minimum=1)
+        lsi = obj.get("logits_save_interval")
+        va.logits_save_interval = (
+            None if lsi in (None, "None")
+            else _num(lsi, "val.logits_save_interval", int))
+        clip_fusion = parse_seq(obj.get("clip_fusion"))
+        if clip_fusion is not None:
+            va.clip_fusion_type = defs.check(clip_fusion[0],
+                                             defs.fusion_type)
+            va.clip_fusion_method = defs.check(clip_fusion[1],
+                                               defs.fusion_method)
+        va.quantize = check_quantize(obj.get("quantize"))
+        va.use_ema = bool(obj.get("use_ema", False))
+        # extra top-k accuracies (top-1 is always computed): an int or a
+        # list of ints
+        tk = parse_seq(obj.get("top_k"))
+        if tk is not None:
+            try:
+                va.top_k = sorted({int(k) for k in tk})
+            except (TypeError, ValueError):
+                error("val top_k must be an int or list of ints, got %r"
+                      % obj.get("top_k"))
+            if any(k < 2 for k in va.top_k):
+                error("val top_k entries must be >= 2 (top-1 is always "
+                      "reported), got %s" % (va.top_k,))
+        return va
+
+    @staticmethod
+    def _read_caption_opts(cap):
+        co = CaptionOpts()
+        co.caption_search = defs.check(
+            cap.get("caption_search", "defs.caption_search.max"),
+            defs.caption_search)
+        co.eval_type = defs.check(cap.get("eval_type", "defs.eval_type.coco"),
+                                  defs.eval_type)
+        co.caption_ground_truth = cap.get("caption_ground_truth")
+        co.word_embeddings_file = cap.get("word_embeddings_file")
+        co.beam_width = _num(cap.get("beam_width", 4),
+                             "captioning.beam_width", int, minimum=1)
+        co.length_norm = _num(cap.get("length_norm", 0.0),
+                              "captioning.length_norm")
+        cml = cap.get("caption_max_length")
+        co.caption_max_length = (None if cml is None else _num(
+            cml, "captioning.caption_max_length", int, minimum=1))
+        if co.length_norm < 0:
+            error("captioning.length_norm must be >= 0 (got %s)"
+                  % co.length_norm)
+        return co
+
+    def _read_datasets(self, config):
+        """``data:`` entries -> the Feeder's datasets.  Inline eval keeps
+        the run phase train but registers the val-phase datasets too."""
+        from video_learning_tpu_torch.data.feeder import Feeder
+        feed_phases = list(self.phases)
+        if self._inline_eval:
+            feed_phases.append(defs.phase.val)
+        self.feeder = Feeder(defs.input_mode.video, feed_phases,
+                             (self.train, self.val),
+                             self.save_freq_per_epoch, self.run_folder,
+                             self.should_resume())
+        for dataid, dataobj in config.get("data", {}).items():
+            dataset_phase = defs.check(dataobj["phase"], defs.phase)
+            if dataset_phase not in feed_phases:
+                info("Omitting dataset [%s] due to its phase [%s]"
+                     % (dataid, dataset_phase))
+                continue
+            path = dataobj["data_path"]
+            mean_image = parse_seq(dataobj.get("mean_image"))
+            batch_item = (defs.check(dataobj["batch_item"], defs.batch_item)
+                          if "batch_item" in dataobj
+                          else defs.batch_item.default)
+            prepend_folder = dataobj.get("prepend_folder") or None
+            image_shape = parse_shape(dataobj.get("image_shape"))
+            imgproc = [defs.check(opt, defs.imgproc)
+                       for opt in (parse_seq(dataobj.get("imgproc")) or [])]
+            if defs.imgproc.sub_mean in imgproc and not mean_image:
+                error("[%s] requires a supplied mean image intensity."
+                      % defs.imgproc.sub_mean)
+            raw_image_shape = parse_shape(dataobj.get("raw_image_shape"))
+            data_format = defs.check(dataobj["data_format"], defs.data_format)
+            frame_format = dataobj.get("frame_format")
+            tag = defs.check(dataobj["tag"], defs.dataset_tag)
+            if raw_image_shape is not None and \
+                    defs.imgproc.raw_resize not in imgproc:
+                imgproc.append(defs.imgproc.raw_resize)
+            if mean_image is not None and \
+                    defs.imgproc.sub_mean not in imgproc:
+                imgproc.append(defs.imgproc.sub_mean)
+            excl = [defs.imgproc.rand_crop in imgproc,
+                    defs.imgproc.center_crop in imgproc,
+                    defs.imgproc.resize in imgproc]
+            if sum(excl) > 1:
+                error("Need at most one of rand_crop/center_crop/resize. "
+                      "Imgproc params: %s" % imgproc)
+            if self.val and dataset_phase == defs.phase.val:
+                if defs.imgproc.rand_crop in imgproc:
+                    warning("Random cropping is enabled in validation mode.")
+                if defs.imgproc.rand_mirror in imgproc:
+                    warning("Random mirroring is enabled in validation mode.")
+            read_tries = _num(dataobj.get("read_tries", 1),
+                              "read_tries", int, minimum=1)
+            captioning_config = None
+            if "captioning" in dataobj:
+                c = dataobj["captioning"]
+                captioning_config = (c.get("word_embeddings_file"),
+                                     c.get("caption_ground_truth"),
+                                     c.get("eval_type"),
+                                     c.get("caption_search"))
+            self.feeder.add_dataset(
+                dataset_phase, dataid, path, mean_image, prepend_folder,
+                image_shape, imgproc, raw_image_shape, data_format,
+                frame_format, batch_item, self.num_classes, tag, read_tries,
+                captioning_config)
+            dset = self.feeder.datasets[dataset_phase][-1]
+            dset.epoch_shuffle = bool(dataobj.get("epoch_shuffle", False))
+            dset.shuffle_seed = _num(
+                dataobj.get("shuffle_seed", self.seed), "shuffle_seed", int)
+            shards = dataobj.get("host_shards", "auto")
+            if shards == "auto":
+                if dataset_phase == defs.phase.train:
+                    # only training data shards automatically; every host
+                    # evaluates the whole validation set
+                    dset.host_shards, dset.host_shard_index = \
+                        _host_shard_slot()
+            else:
+                dset.host_shards = _num(shards, "host_shards", int,
+                                        minimum=1)
+                dset.host_shard_index = _num(
+                    dataobj.get("host_shard_index", 0),
+                    "host_shard_index", int, minimum=0)
+            if "device_preprocess" in dataobj:
+                dset.device_preprocess = bool(dataobj["device_preprocess"])
+
+    # ------------------------------------------------------- orchestration
+    def configure_logging(self):
+        self.timestamp = get_datetime_str()
+        configure_logging(
+            os.path.join(self.run_folder, "log_%s_%s.log"
+                         % (self.run_id, self.timestamp)),
+            self.logging_level)
+
+    def initialize_from_file(self, init_file):
+        if init_file is None:
+            return
+        if not os.path.exists(init_file):
+            error("Unable to read initialization file [%s]." % init_file)
+        if init_file.endswith(".ini"):
+            error(".ini files deprecated.")
+        self.read_config(load_run_document(init_file), init_file)
+        info("Initialized run [%s] from file %s" % (self.run_id, init_file))
+
+    def attach_captioning(self):
+        """Captioning datasets need the vocabulary and word-embedding
+        readers, which are not ported yet: refuse them rather than train
+        a classifier on caption data."""
+        for dsets in self.feeder.datasets.values():
+            for d in dsets:
+                emb_file = None
+                if d.captioning_config is not None:
+                    emb_file = d.captioning_config[0]
+                elif self.captioning is not None:
+                    emb_file = self.captioning.word_embeddings_file
+                if emb_file:
+                    error("Dataset [%s] is a captioning dataset (word "
+                          "embeddings %s): captioning runs from a config "
+                          "are not ported yet (ROADMAP Queue 1, item 2)"
+                          % (d.id, emb_file))
+
+    def initialize(self, init_file):
+        """Full startup: parse the config, copy it into the run folder,
+        refuse captioning datasets, compute the datasets' batch plans and
+        resume their positions if asked.  Returns the Feeder."""
+        self.initialize_from_file(init_file)
+        self.attach_captioning()
+
+        if os.path.dirname(os.path.abspath(init_file)) != \
+                os.path.abspath(self.run_folder):
+            shutil.copyfile(init_file, os.path.join(
+                self.run_folder, os.path.basename(init_file)))
+
+        if self.train and self.val and not self._inline_eval:
+            error("Cannot specify simultaneous training and validation run.")
+        if not (self.train or self.val):
+            error("Neither training nor validation is enabled.")
+        if self._inline_eval and not self.feeder.datasets.get(
+                defs.phase.val):
+            error("eval_every_epochs needs at least one val-phase "
+                  "dataset in data: (all entries are phase train)")
+
+        self.tensorboard_folder = os.path.join(
+            self.run_folder, self.tensorboard_folder, self.phase)
+
+        self.feeder.initialize_datasets()
+        self.feeder.set_phase(self.phase)
+
+        if self.should_resume():
+            if self.train:
+                info("Resuming training.")
+                self.train.epoch_index, self.global_step = \
+                    self.feeder.resume_snap(self.resume_file)
+            elif self.val:
+                info("Evaluating trained network.")
+        else:
+            if self.train:
+                info("Starting training from scratch.")
+            elif self.val:
+                warning("Starting validation-only run with an untrained "
+                        "network.")
+        info("Starting run on folder [%s]." % self.run_folder)
+        return self.feeder
 
 
 class GeometryDataset:

@@ -12,25 +12,7 @@ yet.
 
 import numpy as np
 
-from video_learning_tpu_torch.utils import error
-
-
-def labels_to_one_hot(labels, num_classes):
-    """Multi-hot encode a scalar, a flat list, or a list of per-item label
-    lists; returns (num_items, num_classes) int32."""
-    if not isinstance(labels, list):
-        labels = [labels]
-    norm = [[int(x) for x in item]
-            if isinstance(item, (list, tuple, np.ndarray)) else [int(item)]
-            for item in labels]
-    flat = [label for item in norm for label in item]
-    if flat and max(flat) >= num_classes:
-        error("Encountered label %d but the number of classes is %d"
-              % (max(flat), num_classes))
-    onehots = np.zeros((len(norm), num_classes), dtype=np.int32)
-    for i, item in enumerate(norm):
-        onehots[i, item] = 1
-    return onehots
+from video_learning_tpu_torch.utils import error, labels_to_one_hot
 
 
 def labels_to_words(raw_batch_labels, embedding_matrix, vocabulary,

@@ -1,12 +1,14 @@
-"""Host-side crop geometry, mean image and augmentation parameters.
+"""Host-side image reading, crop geometry, mean image and augmentation.
 
-Counterpart of ``video_learning_tpu/data/imgproc.py:49-139`` in host
-numpy: ``compute_crop``, ``build_mean_image`` and
-``ImageProcessor.draw_params``, which draws the (crop_y, crop_x, mirror)
-triples the device preprocessor (``ops/preprocess.py``) consumes.  The
+Counterpart of ``video_learning_tpu/data/imgproc.py`` in host numpy:
+``read_image``, ``compute_crop``, ``build_mean_image`` and the
+``ImageProcessor`` chain.  ``draw_params`` draws the (crop_y, crop_x,
+mirror) triples the device preprocessor (``ops/preprocess.py``)
+consumes; ``process_batch`` runs the same chain on the host (a dataset
+with ``device_preprocess: false``) from one such draw per batch.  The
 draws use the same numpy stream as the JAX package, so one
 ``random.Random`` state gives both packages identical crops and mirrors.
-PIL is imported only on the resize path.
+PIL is imported only where an image is read or resized.
 """
 
 import numpy as np
@@ -27,6 +29,20 @@ def imresize(image, shape):
     pil = Image.fromarray(arr, mode=mode)
     pil = pil.resize((w, h), resample=Image.BILINEAR)
     return np.asarray(pil)
+
+
+def read_image(imagepath, raw_image_shape=None):
+    """Read an image from disk: grayscale -> 3 channels, non-RGB channels
+    dropped, RGB -> BGR, optionally resized to the raw shape."""
+    from PIL import Image
+    image = np.asarray(Image.open(imagepath))
+    if image.ndim <= 2:
+        image = np.repeat(image[:, :, np.newaxis], 3, 2)
+    image = image[:, :, :3]
+    image = image[:, :, ::-1]
+    if raw_image_shape is not None:
+        image = imresize(image, raw_image_shape)
+    return image
 
 
 def compute_crop(raw_image_shape, image_shape, mode):
@@ -100,6 +116,70 @@ class ImageProcessor:
         if rand_mirror:
             params[:, 2] = rs.randint(0, 2, n)
         return params
+
+    def _crop(self, image, mode, rng):
+        if self.crop_h is None:
+            ch, cw = compute_crop(image.shape, self.desired_image_shape, mode)
+        else:
+            ch, cw = self.crop_h, self.crop_w
+        if mode == defs.imgproc.rand_crop:
+            ch, cw = rng.choice(ch), rng.choice(cw)
+        ch, cw = int(ch), int(cw)
+        return image[ch:ch + self.desired_image_shape[0],
+                     cw:cw + self.desired_image_shape[1], :]
+
+    def supports_params(self):
+        """True when augmentation parameters can be drawn for a whole
+        batch (the crop offsets do not depend on each image's shape)."""
+        needs_crop = (defs.imgproc.rand_crop in self.imgproc or
+                      defs.imgproc.center_crop in self.imgproc)
+        return not needs_crop or self.crop_h is not None
+
+    def _check_shape(self, image):
+        if self.desired_image_shape is not None and \
+                tuple(image.shape) != tuple(self.desired_image_shape):
+            error("Encountered image shape %s but desired shape is %s"
+                  % (image.shape, self.desired_image_shape))
+
+    def process_batch(self, images, rng):
+        """The host chain over a batch, consuming ``rng`` as the device
+        path does (one ``draw_params`` per batch), so both paths give the
+        same pixels from one rng."""
+        if not self.supports_params():
+            return [self.process(im, rng) for im in images]
+        out = []
+        for im, p in zip(images, self.draw_params(len(images), rng)):
+            im = self.process_with_params(im, int(p[0]), int(p[1]),
+                                          int(p[2]))
+            self._check_shape(im)
+            out.append(im)
+        return out
+
+    def process(self, image, rng):
+        """One image through the chain."""
+        if self.supports_params():
+            p = self.draw_params(1, rng)[0]
+            image = self.process_with_params(image, int(p[0]), int(p[1]),
+                                             int(p[2]))
+            self._check_shape(image)
+            return image
+        # per-image crop geometry (raw_image_shape unset: the offsets
+        # depend on each image's own shape)
+        if defs.imgproc.raw_resize in self.imgproc:
+            image = imresize(image, self.raw_image_shape)
+        if defs.imgproc.rand_crop in self.imgproc:
+            image = self._crop(image, defs.imgproc.rand_crop, rng)
+        elif defs.imgproc.center_crop in self.imgproc:
+            image = self._crop(image, defs.imgproc.center_crop, rng)
+        elif defs.imgproc.resize in self.imgproc:
+            image = imresize(image, self.desired_image_shape)
+        self._check_shape(image)
+        if defs.imgproc.sub_mean in self.imgproc:
+            image = image - self.mean_image
+        if defs.imgproc.rand_mirror in self.imgproc:
+            if not rng.randrange(2):
+                image = image[:, ::-1, :]
+        return image
 
     def process_with_params(self, image, crop_y, crop_x, mirror):
         """One frame through the chain with pre-drawn parameters: the

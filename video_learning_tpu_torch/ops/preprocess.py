@@ -15,10 +15,25 @@ import torch
 from video_learning_tpu_torch.defs import defs
 
 
-def supports_device_path(imgproc):
-    """The device path covers crop/mean/mirror chains; PIL resize modes
-    stay on the host."""
-    return defs.imgproc.resize not in (imgproc or [])
+def supports_device_path(imgproc, dataset=None):
+    """The device path covers crop/mean/mirror chains.  Excluded: the
+    PIL resize modes; raw-disk datasets that raw_resize (only the host
+    path resizes their native-size frames before cropping); crop chains
+    without precomputed offsets."""
+    imgproc = imgproc or []
+    if defs.imgproc.resize in imgproc:
+        return False
+    if dataset is not None:
+        if defs.imgproc.raw_resize in imgproc and \
+                getattr(dataset, "data_format", None) == \
+                defs.data_format.raw:
+            return False
+        wants_crop = (defs.imgproc.rand_crop in imgproc or
+                      defs.imgproc.center_crop in imgproc)
+        proc = getattr(dataset, "processor", None)
+        if wants_crop and (proc is None or proc.crop_h is None):
+            return False
+    return True
 
 
 def batch_preprocess(images, params, mean_image, *, out_h, out_w, do_crop,

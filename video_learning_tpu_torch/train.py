@@ -21,10 +21,12 @@ Counterpart of ``video_learning_tpu/train.py``:
 The parameters are float32 leaf tensors that require gradients; the step
 differentiates with ``torch.autograd.grad`` and then updates them in
 place (JAX builds new arrays; in place saves a copy of every parameter).
-Eager PyTorch needs no static shapes, so a ragged batch runs at its own
-size with its ``label_mask`` (the JAX ``BatchGeometry`` padding is not
-ported); neither are the mesh and sharding code, ``compile_scan_steps``
-and ``watch_tensors``.  Dropout draws from torch generators seeded with
+As in JAX, every feed is padded to the run's ``BatchGeometry`` (the epoch
+tail gets ``label_mask`` zeros) and moved to the device by
+``prepare_device_feed``, which a ``FeedPrefetcher`` runs in its thread;
+``run_step`` skips that work for a feed so prepared.  Not ported: the
+mesh and sharding code, ``compile_scan_steps`` and ``watch_tensors``.
+Dropout draws from torch generators seeded with
 ``fold_in(seed + 1, global_step)``: the same structure of streams as the
 JAX ``fold_in``, not the same bits.
 """
@@ -35,12 +37,16 @@ import os
 import numpy as np
 import torch
 
+from video_learning_tpu_torch.batching import BatchGeometry
 from video_learning_tpu_torch.checkpoint import flatten_tree, unflatten_tree
 from video_learning_tpu_torch.defs import defs
 from video_learning_tpu_torch.ops.preprocess import (make_preprocessor,
                                                      supports_device_path)
 from video_learning_tpu_torch.utils import (error, fold_in, info,
                                             resolve_device)
+
+# the key prepare_device_feed adds to a feed it has padded and moved
+ON_DEVICE = "__on_device__"
 
 # optax.adam / optax.adamw and optax.rmsprop defaults
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
@@ -305,6 +311,13 @@ class Train:
             precompute_learning_rates(settings, feeder.get_num_batches()),
             np.float32)
         self._accum = int(getattr(settings.train, "accum_steps", 1) or 1)
+        if self._accum > 1:
+            self._check_accum_geometry()
+        set_feed_device = getattr(feeder, "set_feed_device", None)
+        if set_feed_device is not None:
+            set_feed_device(self.device)
+        self._geometry = BatchGeometry()
+        self._copy_stream = None
 
         fresh = model.init_params(seed, device="cpu" if params is not None
                                   else self.device)
@@ -331,6 +344,32 @@ class Train:
         self.global_step = int(settings.global_step)
         self._preprocessors = self._build_preprocessors()
 
+    def _check_accum_geometry(self):
+        """accum_steps splits every feed array into equal micro-batches
+        along its leading dim, so the per-item row counts must be uniform:
+        refuse a training dataset with variable clips per video under
+        batch_item default."""
+        if self.settings.train.batch_item == defs.batch_item.clip:
+            return
+        datasets = self.feeder.datasets
+        if isinstance(datasets, dict):
+            datasets = datasets.get(defs.phase.train, [])
+        for d in datasets:
+            cpv = getattr(d, "clips_per_video", None)
+            if isinstance(cpv, (list, tuple)) and len(set(cpv)) > 1:
+                error("accum_steps > 1 needs uniform batch geometry; "
+                      "dataset has variable clips-per-video (%d..%d). "
+                      "Use batch_item: defs.batch_item.clip or repack "
+                      "with a fixed cpv." % (min(cpv), max(cpv)))
+
+    def _check_accum_feed(self, feed):
+        for k, v in feed.items():
+            if isinstance(v, torch.Tensor) and v.dim() >= 1 and \
+                    v.shape[0] % self._accum:
+                error("accum_steps=%d does not divide feed '%s' rows (%d); "
+                      "adjust batch_size/accum_steps"
+                      % (self._accum, k, v.shape[0]))
+
     def _build_preprocessors(self):
         pre = {}
         for key, itype, tag in self.model.required_input:
@@ -341,7 +380,7 @@ class Train:
                 continue
             d = dsets[0]
             if d.device_preprocess and d.processor is not None:
-                if not supports_device_path(d.imgproc):
+                if not supports_device_path(d.imgproc, d):
                     error("Device preprocessing unsupported for imgproc %s"
                           % d.imgproc)
                 # frames come out in the compute dtype: conv1 takes them
@@ -391,11 +430,6 @@ class Train:
         added up and divided by the total mask count at the end, which
         equals the full-batch masked mean up to float reassociation."""
         accum = self._accum
-        for k, v in feed.items():
-            if v.dim() >= 1 and v.shape[0] % accum:
-                error("accum_steps=%d does not divide feed '%s' rows (%d); "
-                      "adjust batch_size/accum_steps"
-                      % (accum, k, v.shape[0]))
         grads, loss_sum, count, correct = None, 0.0, 0.0, 0.0
         for i in range(accum):
             micro = {k: (v.reshape((accum, v.shape[0] // accum) +
@@ -419,14 +453,69 @@ class Train:
                  for n, g in grads.items()}
         return grads, loss_sum / denom, correct / denom
 
+    # ------------------------------------------------------------- feeds
+    def prepare_device_feed(self, feed, batches=None):
+        """Move a feed to the device and pad it to the batch geometry
+        (the epoch tail's missing rows get ``label_mask`` zeros; a
+        caller's mask is kept), then check it against ``accum_steps``.
+        Safe to run in a prefetch thread, so the copies overlap the
+        previous step; ``run_step`` skips this work for the returned
+        feed.  ``batches`` is not read: it is there so that this method
+        serves as ``FeedPrefetcher``'s ``prepare_fn``.
+
+        On a CUDA device the copies and the padding run on a side stream
+        of this engine, so they overlap the step that runs on the
+        caller's stream, and this method returns only once they have
+        finished.  Of the two ways to keep the datasets' read-buffer ring
+        safe (a CUDA event per slot that the reader waits on before it
+        refills the slot, or a copy that is done before the feed is
+        handed on) this takes the second: a slot can then be refilled at
+        once, no slot carries state between threads, and the wait costs
+        the prefetch thread one copy per batch, time that it has while
+        the step runs (``chip_smoke.py`` phase 8 times the two).
+        ``run_step`` marks each tensor as used on its own stream
+        (``record_stream``), so the caching allocator does not hand the
+        memory back to the side stream while the step still reads it."""
+        feed = {k: v if isinstance(v, torch.Tensor)
+                else torch.from_numpy(np.ascontiguousarray(v))
+                for k, v in feed.items()}
+        if self.device.type == "cuda":
+            if self._copy_stream is None:
+                self._copy_stream = torch.cuda.Stream(self.device)
+            if any(v.is_cuda for v in feed.values()):
+                # tensors already on the card may still be being written
+                # on the caller's stream
+                self._copy_stream.wait_stream(
+                    torch.cuda.current_stream(self.device))
+            with torch.cuda.stream(self._copy_stream):
+                feed = self._pad_on_device(feed)
+            self._copy_stream.synchronize()
+        else:
+            feed = self._pad_on_device(feed)
+        if self._accum > 1:
+            self._check_accum_feed(feed)
+        feed[ON_DEVICE] = True
+        return feed
+
+    def _pad_on_device(self, feed):
+        feed = {k: v.to(self.device, non_blocking=True)
+                for k, v in feed.items()}
+        return self._geometry.pad_feed(feed)[0]
+
     def run_step(self, feed):
         """One optimizer step on a feed dict ({input key: array or
         tensor}, "labels" one-hot, optional "label_mask" and
-        "<key>/proc_params" for device preprocessing); returns the metrics
-        loss, lr, grad_norm and accuracy as floats."""
-        feed = {k: (v if isinstance(v, torch.Tensor)
-                    else torch.as_tensor(np.asarray(v))).to(self.device)
-                for k, v in feed.items()}
+        "<key>/proc_params" for device preprocessing), or on a feed from
+        ``prepare_device_feed``; returns the metrics loss, lr, grad_norm
+        and accuracy as floats."""
+        feed = dict(feed)
+        if not feed.pop(ON_DEVICE, False):
+            feed = self.prepare_device_feed(feed)
+            feed.pop(ON_DEVICE)
+        if self.device.type == "cuda":
+            stream = torch.cuda.current_stream(self.device)
+            for v in feed.values():
+                v.record_stream(stream)
         seed = fold_in(self.seed + 1, self.global_step)
         if self._accum > 1:
             grads, loss, acc = self._step_micro_sums(feed, seed)

@@ -1,12 +1,18 @@
-"""Logging, the framework error, and device resolution for the PyTorch port.
+"""Logging, the framework error, small helpers and device resolution for
+the PyTorch port.
 
 A short counterpart of ``video_learning_tpu/utils.py``: the same logger
 name ("vlt") and the same ``error`` contract (log, then raise
-``FrameworkError``), without that module's email notifier or its JAX
-debug printing.
+``FrameworkError``), the config scalar check ``as_num``, the run-folder
+helpers and the label encoder, without that module's email notifier or
+its JAX debug printing.
 """
 
 import logging
+import os
+import time
+
+import numpy as np
 
 _LOGGER = "vlt"
 
@@ -18,6 +24,22 @@ class FrameworkError(Exception):
 def error(msg):
     logging.getLogger(_LOGGER).error(msg)
     raise FrameworkError(msg)
+
+
+def as_num(value, field, conv=float, minimum=None):
+    """Convert a config scalar, surfacing a typo as a FrameworkError
+    naming the field (``int`` refuses a value it would truncate)."""
+    try:
+        out = conv(value)
+        if conv is int and not isinstance(value, bool) and \
+                float(value) != out:
+            raise ValueError(value)
+    except (TypeError, ValueError):
+        error("Field [%s] must be a %s, got: [%s]"
+              % (field, conv.__name__, value))
+    if minimum is not None and out < minimum:
+        error("Field [%s] must be >= %s (got %s)" % (field, minimum, out))
+    return out
 
 
 def info(message):
@@ -44,6 +66,30 @@ def warning_once(message, key=None):
     warning(message)
 
 
+def configure_logging(logfile, logging_level):
+    """File (when ``logfile`` is given) and console handlers on the "vlt"
+    logger at ``logging_level`` (an int or a "logging.INFO"-style
+    string)."""
+    if isinstance(logging_level, str):
+        resolved = getattr(logging, logging_level.split(".")[-1], None)
+        if not isinstance(resolved, int):
+            error("Invalid logging level: %s" % logging_level)
+        logging_level = resolved
+    logger = logging.getLogger(_LOGGER)
+    logger.setLevel(logging_level)
+    logger.handlers = []
+    fmt = logging.Formatter("%(asctime)s| %(levelname)7s - %(filename)15s - "
+                            "line %(lineno)4d - %(message)s")
+    if logfile:
+        fh = logging.FileHandler(logfile)
+        fh.setLevel(logging_level)
+        fh.setFormatter(fmt)
+        logger.addHandler(fh)
+    ch = logging.StreamHandler()
+    ch.setFormatter(fmt)
+    logger.addHandler(ch)
+
+
 def ensure_console_logging(level=logging.INFO):
     """Give standalone CLI tools a console handler so info() output is
     visible without a full run configuration."""
@@ -56,12 +102,59 @@ def ensure_console_logging(level=logging.INFO):
         logger.setLevel(level)
 
 
+def get_datetime_str():
+    return time.strftime("%d%m%y_%H%M%S")
+
+
+def labels_to_one_hot(labels, num_classes):
+    """Multi-hot encode a scalar, a flat list, or a list of per-item label
+    lists; returns (num_items, num_classes) int32."""
+    if not isinstance(labels, list):
+        labels = [labels]
+    norm = [[int(x) for x in item]
+            if isinstance(item, (list, tuple, np.ndarray)) else [int(item)]
+            for item in labels]
+    flat = [label for item in norm for label in item]
+    if flat and max(flat) >= num_classes:
+        error("Encountered label %d but the number of classes is %d"
+              % (max(flat), num_classes))
+    onehots = np.zeros((len(norm), num_classes), dtype=np.int32)
+    for i, item in enumerate(norm):
+        onehots[i, item] = 1
+    return onehots
+
+
+def read_file_dict(filename):
+    """key<TAB>value lines -> dict."""
+    out = {}
+    with open(filename, "r") as f:
+        for line in f:
+            if not line.strip():
+                continue
+            key, value = line.strip().split("\t", 1)
+            key, value = key.strip(), value.strip()
+            if key in out:
+                warning("Duplicate key %s in file %s" % (key, filename))
+            out[key] = value
+    return out
+
+
+def get_run_checkpoints(run_folder):
+    """Checkpoint paths under <run_folder>/checkpoints, oldest first;
+    ``best.ckpt`` stays outside the rotation."""
+    folder = os.path.join(run_folder, "checkpoints")
+    if not os.path.isdir(folder):
+        return []
+    files = [os.path.join(folder, x) for x in os.listdir(folder)
+             if x.endswith(".ckpt") and x != "best.ckpt"]
+    return sorted(files, key=os.path.getmtime)
+
+
 def fold_in(seed, data):
     """A new 63-bit seed derived from ``seed`` and the integer ``data``:
     the port's counterpart of ``jax.random.fold_in`` for torch generator
     seeds (distinct streams per step, micro-batch or pipeline; not JAX's
     bits)."""
-    import numpy as np
     state = np.random.SeedSequence([int(seed), int(data)]).generate_state(
         1, np.uint64)
     return int(state[0] >> np.uint64(1))
