@@ -108,6 +108,31 @@ Phases (each raises on failure; nothing is caught and passed over):
    COCO_val2014_<id>.jpg paths file and a synthetic ground truth: 2 lrn
    and 20 lstm_step per greedy decode batch, 64 unique ids in
    coco.results.json, every score finite, captions/s.
+10. media to answer, in phase 8's folder before it is removed, with no
+   PIL and no YAML: 16 folders of 80 240x320 binary P6 frames written
+   with numpy are packed by the port's ``serialize.main`` from a JSON
+   config (rand_clips, cpv 4, fpc 16, a fixed seed, every record
+   validated, the log in the folder); ``check_serialized_data`` counts
+   the .size sidecar's records and ``compute_image_mean`` gives finite
+   means; frames/s and MB/s.  ``tools/infer.main`` runs phase 9's val
+   config and checkpoint (``--ema``, top-5) over the 16 folders: 16
+   rows, 2 lrn and 32 lstm_step per val batch with the plain versions
+   locked out, items/s end to end; one item in float32 agrees between
+   the card and the CPU within 1e-3 x max(1, max|logit|).
+   ``export_serving.export`` writes the same checkpoint with buckets
+   [1, 8], float and int8_static (meta ``ema`` true, ``run_id``
+   phase9_infer_val_resume); each artifact, loaded by ``serving.load``,
+   answers infer's last batch (2 lrn, 32 lstm_step, and 9 int8 GEMMs
+   for int8_static, per call): float logits within 1e-3 x max(1,
+   max|logit|) of infer's, int8_static within (0, 50%) of the logit
+   scale; export seconds and first-call ms.  Caption preprocessing:
+   COCO-style annotations over 8 P6 images with a 10,000-word
+   vocabulary and a 300-d GloVe-style file go through
+   ``process_annotations`` and ``produce_vocab_embeddings``, the images
+   are packed, ``infer`` of a fresh captioner at phase 6's width
+   (``--checkpoint none``, T from the packed set's .size) gives 8
+   captions with 2 lrn and 20 lstm_step per decode batch, and its
+   export's token ids equal infer's.
 
 The line before the last lists every ported kernel as JSON (launches per
 serving forward for lrn and lstm_step, per training step for the
@@ -138,8 +163,9 @@ import torch.nn.functional as F
 
 from video_learning_tpu_torch import checkpoint, run_task, serving
 from video_learning_tpu_torch import val as val_mod
+from video_learning_tpu_torch.batching import BatchGeometry
 from video_learning_tpu_torch.config import Settings
-from video_learning_tpu_torch.data import native_io, records
+from video_learning_tpu_torch.data import native_io, records, serialize
 from video_learning_tpu_torch.data.prefetch import FeedPrefetcher
 from video_learning_tpu_torch.defs import defs
 from video_learning_tpu_torch.flagship import (SERVING_IMGPROC, SERVING_MEAN,
@@ -154,6 +180,12 @@ from video_learning_tpu_torch.ops import int8_mm as int8_mod
 from video_learning_tpu_torch.ops import lrn as lrn_mod
 from video_learning_tpu_torch.ops import lstm_step as lstm_mod
 from video_learning_tpu_torch.ops.preprocess import make_preprocessor
+from video_learning_tpu_torch.tools import check_serialized_data
+from video_learning_tpu_torch.tools import compute_image_mean
+from video_learning_tpu_torch.tools import export_serving as export_mod
+from video_learning_tpu_torch.tools import infer as infer_mod
+from video_learning_tpu_torch.tools import process_annotations
+from video_learning_tpu_torch.tools import produce_vocab_embeddings
 from video_learning_tpu_torch.tools import serve as serve_mod
 from video_learning_tpu_torch.train import Train
 
@@ -1884,12 +1916,13 @@ def pack_videos(folder, videos, seed):
     the paths file (a dataset's ``data_path``)."""
     frame_bytes = RAW_HW[0] * RAW_HW[1] * 3
     # phase 9 adds its val split, one checkpoint of ~0.5 GB (and a probe
-    # save) and the caption files in the same folder
+    # save) and the caption files in the same folder, phase 10 its media,
+    # their packs and its artifacts
     need = (videos + RUN_VAL_VIDEOS * RUN_VAL_CPV) * FPC * \
-        (frame_bytes + 64) + (3 << 29)
+        (frame_bytes + 64) + (3 << 29) + MEDIA_BYTES
     free = shutil.disk_usage(folder).free
     if free < need + (1 << 30):
-        raise RuntimeError("phases 8-9 write %.2f GB into %s, which has "
+        raise RuntimeError("phases 8-10 write %.2f GB into %s, which has "
                            "%.2f GB free" % (need / 1e9, folder,
                                              free / 1e9))
     base = os.path.join(folder, "videos.train")
@@ -2254,11 +2287,12 @@ class _PerCall:
     """Wraps ``owner.name`` for a ``with`` block: each call's launch
     counts (the counters' rise over the call; nothing is reset, so the
     totals over a whole run stay intact), its host wall (ending in a
-    sync), and its ``self`` and arguments of the last call."""
+    sync), and the arguments (``self`` first) and output of the last
+    call."""
 
     def __init__(self, owner, name, kernels):
         self.owner, self.name, self.kernels = owner, name, kernels
-        self.calls, self.last = [], None
+        self.calls, self.last, self.out = [], None, None
 
     def __enter__(self):
         self.saved = getattr(self.owner, self.name)
@@ -2273,7 +2307,7 @@ class _PerCall:
             after = counts(outer.kernels)
             outer.calls.append({"wall_s": wall, "launched": {
                 k: after[k] - before[k] for k in outer.kernels}})
-            outer.last = args
+            outer.last, outer.out = args, out
             return out
 
         setattr(self.owner, self.name, wrapped)
@@ -2631,6 +2665,382 @@ def phase_run(results, folder, train_path):
     run_caption_phase(results, folder)
 
 
+# ------------------------------------------------------------ phase 10
+MEDIA_VIDEOS, MEDIA_CPV, MEDIA_SEED = 16, 4, 10
+MEDIA_FRAMES = FPC * (MEDIA_CPV + 1)    # frames per folder: 80
+EXPORT_BUCKETS = [1, RUN_VAL_ITEMS]
+# the media, three packs of them, two signature batches and their packs,
+# three artifacts of ~0.25 GB
+MEDIA_BYTES = 5 * MEDIA_VIDEOS * MEDIA_FRAMES * RAW_HW[0] * RAW_HW[1] * 3 \
+    + (3 << 28)
+CAPTION_MEDIA, CAPTION_PER_IMAGE = 8, 5
+INT8_WANT = dict(VAL_WANT, int8_mm=INT8_MM_PER_FORWARD)
+
+
+def write_media(folder, seed):
+    """MEDIA_VIDEOS folders of MEDIA_FRAMES 240x320 binary P6 frames from
+    one seeded numpy stream and their ``path label`` list.  Returns (the
+    folders, the list file)."""
+    rng = np.random.default_rng(seed)
+    vids = []
+    for v in range(MEDIA_VIDEOS):
+        vdir = os.path.join(folder, "media%02d" % v)
+        os.makedirs(vdir)
+        for i, frame in enumerate(rng.integers(
+                0, 256, (MEDIA_FRAMES,) + RAW_HW + (3,), np.uint8)):
+            export_mod.write_ppm(os.path.join(vdir, "f_%04d.ppm" % i),
+                                 frame)
+        vids.append(vdir)
+    listing = os.path.join(folder, "media.list")
+    with open(listing, "w") as f:
+        f.write("".join("%s %d\n" % (v, i % CLASSES)
+                        for i, v in enumerate(vids)))
+    return vids, listing
+
+
+def pack_config(folder, name, listing, **over):
+    """A JSON ``serialize:`` config: rand_clips of FPC frames, MEDIA_CPV a
+    video, a fixed seed, every record validated, the log in ``folder``.
+    Returns its path."""
+    cfg = {"input_files": [listing], "run_id": name,
+           "output_folder": os.path.join(folder, name),
+           "num_threads": 4, "num_items_per_thread": 64,
+           "num_processes": 1, "raw_image_shape": list(RAW_HW) + [3],
+           "clip_offset_or_num": MEDIA_CPV, "num_frames_per_clip": FPC,
+           "clipframe_mode": "defs.clipframe_mode.rand_clips",
+           "generation_error": "defs.generation_error.abort",
+           "do_shuffle": False, "do_validate": True, "validate_pcnt": 100,
+           "frame_format": "ppm", "logging_level": "logging.WARN",
+           "log_folder": folder, "seed": MEDIA_SEED}
+    cfg.update(over)
+    path = os.path.join(folder, name + ".json")
+    with open(path, "w") as f:
+        json.dump({"serialize": cfg}, f, indent=1)
+    return path
+
+
+def media_pack(results, folder, listing):
+    """``serialize.main`` on the media, then ``check_serialized_data`` and
+    ``compute_image_mean`` on what it wrote."""
+    t0 = time.monotonic()
+    serialize.main(["serialize", pack_config(folder, "pack10", listing)])
+    wall = time.monotonic() - t0
+    record = os.path.join(folder, "pack10", "media.list.tfrecord")
+    size = records.read_size_file(record + ".size")
+    want = sum(size["cpi"]) * size["fpc"]
+    checked = check_serialized_data.check(record)
+    if checked["count"] != want or want != MEDIA_VIDEOS * MEDIA_CPV * FPC:
+        raise AssertionError("%d records, .size says %d" % (checked["count"],
+                                                            want))
+    means = compute_image_mean.main(["compute_image_mean", record])
+    if not np.all(np.isfinite(means)) or len(means) != 3:
+        raise AssertionError("image means %s" % means)
+    nbytes = os.path.getsize(record)
+    results["media_pack"] = {"wall_s": wall, "frames": want,
+                             "bytes": nbytes, "frames_per_s": want / wall,
+                             "mb_per_s": nbytes / 1e6 / wall,
+                             "channel_means": [float(m) for m in means]}
+    log("  packed %d frames of %d .ppm folders (%.1f MB) in %.2f s, "
+        "records validated: %.1f frames/s, %.1f MB/s; "
+        "check_serialized_data %d records = .size; channel means %s"
+        % (want, MEDIA_VIDEOS, nbytes / 1e6, wall, want / wall,
+           nbytes / 1e6 / wall, checked["count"],
+           [round(float(m), 3) for m in means]))
+
+
+def media_infer(results, folder, cfg, vids):
+    """``infer.main`` over the media with phase 9's checkpoint (EMA):
+    launches per val batch with the plain versions locked out, items/s
+    end to end.  Returns (its last batch's feed, that batch's logits)."""
+    reset_counts()
+    t0 = time.monotonic()
+    with _PlainLockedOut(), \
+            _PerCall(val_mod.Validation, "run_forward",
+                     ("lrn", "lstm_step")) as fwd:
+        rows = infer_mod.main([cfg, "--media"] + vids + [
+            "--topk", "5", "--ema", "--workdir",
+            os.path.join(folder, "infer10")])
+    wall = time.monotonic() - t0
+    total = counts()
+    batches = len(fwd.calls)
+    if batches != MEDIA_VIDEOS // RUN_VAL_ITEMS or \
+            total != {k: batches * v for k, v in VAL_WANT.items()}:
+        raise AssertionError("%d infer batches launched %s"
+                             % (batches, total))
+    _check_calls(fwd.calls, VAL_WANT, "infer batch")
+    if [r["media"] for r in rows] != vids or \
+            not all(len(r["topk"]) == 5 and
+                    all(0.0 <= p <= 1.0 for _, p in r["topk"])
+                    for r in rows):
+        raise AssertionError("infer rows %s" % rows[:2])
+    results["media_infer"] = {
+        "wall_s": wall, "items_per_s": MEDIA_VIDEOS / wall,
+        "launches": total, "batches": fwd.calls, "first_row": rows[0]}
+    log("  infer: %d rows of top-5 in %.2f s = %.2f items/s end to end "
+        "(packing %d clips x %d frames an item included); %d batches "
+        "launched %s; first row %s"
+        % (len(rows), wall, MEDIA_VIDEOS / wall, MEDIA_CPV, FPC, batches,
+           total, rows[0]["topk"][:2]))
+    return fwd.last[2], fwd.out
+
+
+def media_card_vs_cpu(results, folder, train_path, val_path, vids):
+    """One item through ``build_serving_context`` in float32 on the card
+    and on the CPU."""
+    cfg = run_config(folder, "val10_f32.json", "val", train_path, val_path,
+                     val_items=1, compute_dtype="float32")
+    out = {}
+    for device in ("cuda", "cpu"):
+        work = os.path.join(folder, "f32_" + device)
+        os.makedirs(work)
+        _, feeder, model, params, val, _ = \
+            infer_mod.build_serving_context(cfg, vids[:1], "latest",
+                                            workdir=work, use_ema=True,
+                                            device=device)
+        feeder.loop()
+        feed, _, _ = infer_mod.next_val_feed(feeder, model,
+                                             BatchGeometry())
+        out[device] = val.run_forward(params, feed)
+        del model, params, val
+    err = float(np.abs(out["cuda"] - out["cpu"]).max())
+    limit = 1e-3 * max(1.0, float(np.abs(out["cpu"]).max()))
+    results["media_fp32_card_vs_cpu"] = {"max_abs_err": err, "limit": limit}
+    log("  one item (%d clips) in float32, card vs CPU: max abs err %.3g "
+        "(limit %.3g)" % (out["cpu"].shape[0], err, limit))
+    if not err <= limit:
+        raise AssertionError("infer logits card vs CPU differ by %g" % err)
+
+
+def call_artifact(path, feed, want):
+    """``serving.load`` an artifact and call it on ``feed``'s arrays with
+    the plain versions locked out; returns (the output, the first call's
+    ms, its launches)."""
+    module = serving.load(path)
+    arrays = [feed[i["name"]] for i in module.meta["inputs"]]
+    reset_counts()
+    with _PlainLockedOut():
+        t0 = time.monotonic()
+        out = module(*arrays)
+        torch.cuda.synchronize()
+        first_ms = (time.monotonic() - t0) * 1e3
+    launched = counts(tuple(want))
+    if launched != want:
+        raise AssertionError("an artifact call launched %s, expected %s"
+                             % (launched, want))
+    return module, out, first_ms
+
+
+def media_export(results, folder, cfg, feed, logits):
+    """``export_serving.export`` of phase 9's checkpoint (EMA) with
+    buckets [1, 8], float and int8_static; each artifact loaded and
+    called on infer's batch."""
+    got, outs = {}, {}
+    for name, int8, want in (("float", False, VAL_WANT),
+                             ("int8_static", "static", INT8_WANT)):
+        path = os.path.join(folder, "export10_%s.zip" % name)
+        t0 = time.monotonic()
+        meta = export_mod.export(cfg, path, "latest",
+                                 batch_items=EXPORT_BUCKETS, int8=int8,
+                                 use_ema=True,
+                                 workdir=os.path.join(folder, "x_" + name))
+        export_s = time.monotonic() - t0
+        if meta["ema"] is not True or \
+                meta["run_id"] != "phase9_infer_val_resume" or \
+                meta["buckets"] != EXPORT_BUCKETS or \
+                meta["quantize"] != ("int8_static" if int8 else None):
+            raise AssertionError("export meta %s" % {
+                k: meta[k] for k in ("ema", "run_id", "buckets",
+                                     "quantize")})
+        module, outs[name], first_ms = call_artifact(path, feed, want)
+        if outs[name].shape != logits.shape or \
+                not np.all(np.isfinite(outs[name])):
+            raise AssertionError("artifact output %s"
+                                 % (outs[name].shape,))
+        got[name] = {"export_s": export_s, "first_call_ms": first_ms,
+                     "bucket": module.last_bucket,
+                     "bytes": os.path.getsize(path)}
+        log("  export %s: %.2f s (%.0f MB), ema %s, run_id %s; first call "
+            "at bucket %d %.1f ms, launched %s"
+            % (name, export_s, os.path.getsize(path) / 1e6, meta["ema"],
+               meta["run_id"], module.last_bucket, first_ms, want))
+        del module
+    scale = max(1.0, float(np.abs(logits).max()))
+    err = float(np.abs(outs["float"] - logits).max())
+    delta = float(np.abs(outs["int8_static"] - logits).max())
+    got["float_vs_infer_max_abs_err"] = err
+    got["int8_static_vs_infer_max_abs_delta"] = delta
+    results["media_export"] = got
+    log("  artifacts on infer's batch: float max abs err %.3g (limit %.3g),"
+        " int8_static delta %.3g (logit scale %.3g)"
+        % (err, 1e-3 * scale, delta, scale))
+    if not err <= 1e-3 * scale:
+        raise AssertionError("float artifact vs infer: %g" % err)
+    if not 0.0 < delta < 0.5 * scale:
+        raise AssertionError("int8_static artifact vs infer: %g (scale %g)"
+                             % (delta, scale))
+
+
+def caption_media(results, folder):
+    """COCO-style annotations over CAPTION_MEDIA P6 images whose
+    vocabulary reaches CAPTION_WORDS, a CAPTION_DIM-d GloVe-style text
+    file, ``process_annotations`` (vocabulary, then encoded labels),
+    ``produce_vocab_embeddings`` and the packed images.  Returns (run
+    config of a captioner at phase 6's width, the images)."""
+    t0 = time.monotonic()
+    rng = np.random.default_rng(MEDIA_SEED)
+    img_dir = os.path.join(folder, "capimgs")
+    os.makedirs(img_dir)
+    words = ["w%04d" % i for i in range(CAPTION_WORDS - 3)]
+    n_caps = CAPTION_MEDIA * CAPTION_PER_IMAGE
+    per = -(-len(words) // n_caps)
+    images, annotations, media = [], [], []
+    for i in range(CAPTION_MEDIA):
+        name = "COCO_val2014_%012d.ppm" % (i + 1)
+        path = os.path.join(img_dir, name)
+        export_mod.write_ppm(path, rng.integers(0, 256, RAW_HW + (3,),
+                                                np.uint8))
+        media.append(path)
+        images.append({"id": i + 1, "file_name": name})
+        for j in range(CAPTION_PER_IMAGE):
+            k = (i * CAPTION_PER_IMAGE + j) * per
+            annotations.append({"image_id": i + 1, "caption": " ".join(
+                words[k:k + per])})
+    ann = os.path.join(folder, "captions10.json")
+    with open(ann, "w") as f:
+        json.dump({"images": images, "annotations": annotations}, f)
+    glove = os.path.join(folder, "glove10.txt")
+    vecs = rng.standard_normal((len(words), CAPTION_DIM)) * 0.1
+    with open(glove, "w") as f:
+        for w, row in zip(words, vecs):
+            f.write(w + " " + " ".join("%.4f" % x for x in row) + "\n")
+    doc = {"caption_files": [ann], "caption_file_formats": ["coco"],
+           "vocabulary_file": None, "word_count_thresh": None,
+           "caption_max_length": CAPTION_T - 1, "embeddings_file": glove,
+           "randomize_missing_embeddings": True}
+    cfg = os.path.join(folder, "captions10_cfg.json")
+    with open(cfg, "w") as f:
+        json.dump({"captions": doc}, f)
+    vocab = process_annotations.main(["process_annotations", cfg])
+    doc["vocabulary_file"] = vocab
+    with open(cfg, "w") as f:
+        json.dump({"captions": doc}, f)
+    encoded = process_annotations.main(["process_annotations", cfg])[0]
+    emb = produce_vocab_embeddings.main(["produce_vocab_embeddings", cfg])
+    with open(vocab) as f:
+        n_words = len(f.read().split())
+    if n_words != CAPTION_WORDS:
+        raise AssertionError("vocabulary of %d words" % n_words)
+    serialize.main(["serialize", pack_config(
+        folder, "capt10", encoded, path_prepend_folder=img_dir,
+        clip_offset_or_num=1, num_frames_per_clip=1,
+        clipframe_mode="defs.clipframe_mode.iterative")])
+    data_path = os.path.join(folder, "capt10", os.path.basename(encoded))
+    size = records.read_size_file(data_path + ".tfrecord.size")
+    if size["items"] != n_caps or size["labelcount"] != CAPTION_T - 1:
+        raise AssertionError(".size of the caption set %s" % size)
+    run = {
+        "resume_file": None, "run_folder": os.path.join(folder, "run10c"),
+        "run_id": "phase10c", "phase": "defs.phase.val", "seed": 0,
+        "mesh_shape": {"data": 1}, "compute_dtype": "bfloat16",
+        "data": {"caps": {
+            "data_path": data_path, "prepend_folder": "",
+            "raw_image_shape": "(%d, %d, 3)" % RAW_HW,
+            "image_shape": "(%d, %d, 3)" % (IMAGE, IMAGE),
+            "mean_image": list(SERVING_MEAN),
+            "data_format": "defs.data_format.tfrecord",
+            "frame_format": "ppm",
+            "imgproc": ["defs.imgproc.center_crop", "defs.imgproc.sub_mean"],
+            "batch_item": "defs.batch_item.default",
+            "phase": "defs.phase.val", "tag": "defs.dataset_tag.main",
+            "device_preprocess": True}},
+        "network": {"num_classes": CAPTION_WORDS, "pipelines": [
+            {"frames": {"input": "defs.dataset_tag.main",
+                        "representation": "defs.representation.dcnn",
+                        "frame_encoding_layer": "fc7"}},
+            {"capt": {"input": "frames",
+                      "representation": "defs.representation.nop",
+                      "classifier": "defs.classifier.lstm",
+                      "lstm_params": [512, 1, "defs.fusion_method.avg",
+                                      "defs.rnn_visual_mode.state_bias"]}}]},
+        "val": {"batch_size": CAPTION_MEDIA, "logits_save_interval": -1},
+        "captioning": {"caption_search": "defs.caption_search.max",
+                       "eval_type": "defs.eval_type.coco",
+                       "word_embeddings_file": emb},
+        "logging": {"level": "logging.WARN"}}
+    path = os.path.join(folder, "caption10.json")
+    with open(path, "w") as f:
+        json.dump({"run": run}, f, indent=1)
+    results["media_caption_prep_s"] = time.monotonic() - t0
+    log("  caption preprocessing: %d annotations over %d images, a "
+        "%d-word vocabulary, %d-d embeddings, %d captions packed, in %.1f s"
+        % (n_caps, CAPTION_MEDIA, n_words, CAPTION_DIM, size["items"],
+           results["media_caption_prep_s"]))
+    return path, media
+
+
+def media_caption(results, folder):
+    """Caption preprocessing, then ``infer`` of a fresh captioner at
+    phase 6's width (greedy, T from the packed set's .size) and its
+    export: the artifact's token ids equal infer's."""
+    cfg, media = caption_media(results, folder)
+    reset_counts()
+    t0 = time.monotonic()
+    with _PlainLockedOut(), \
+            _PerCall(val_mod.Validation, "run_forward",
+                     ("lrn", "lstm_step")) as fwd:
+        rows = infer_mod.main([cfg, "--media"] + media + [
+            "--checkpoint", "none", "--workdir",
+            os.path.join(folder, "infer10c")])
+    wall = time.monotonic() - t0
+    total = counts()
+    if len(fwd.calls) != 1 or total != CAPTION_WANT or \
+            len(rows) != CAPTION_MEDIA or \
+            not all(isinstance(r["caption"], str) for r in rows):
+        raise AssertionError("caption infer: %d batches launched %s, %d rows"
+                             % (len(fwd.calls), total, len(rows)))
+    feed, ids = fwd.last[2], fwd.out
+    path = os.path.join(folder, "export10_caption.zip")
+    t1 = time.monotonic()
+    meta = export_mod.export(cfg, path, "none",
+                             batch_items=[CAPTION_MEDIA],
+                             workdir=os.path.join(folder, "x_caption"))
+    export_s = time.monotonic() - t1
+    module, out, first_ms = call_artifact(path, feed, CAPTION_WANT)
+    if meta["output"]["kind"] != "token_ids" or \
+            not np.array_equal(out, ids) or \
+            module.captions_from_ids(out) != [r["caption"] for r in rows]:
+        raise AssertionError("caption artifact ids differ from infer's")
+    results["media_caption"] = {
+        "infer_wall_s": wall, "captions_per_s": CAPTION_MEDIA / wall,
+        "launches": total, "export_s": export_s,
+        "first_call_ms": first_ms, "first_caption": rows[0]["caption"]}
+    log("  caption infer: %d captions in %.2f s (%.2f captions/s end to "
+        "end, packing included), launched %s; export %.2f s, the "
+        "artifact's token ids = infer's, first call %.1f ms"
+        % (len(rows), wall, CAPTION_MEDIA / wall, total, export_s,
+           first_ms))
+
+
+def phase_media(results, folder, train_path):
+    """Phase 10: media to answer, in phase 8's folder with phase 9's
+    config and checkpoint."""
+    log("phase 10: packing, inference on raw media and export")
+    val_path = os.path.join(folder, "videos.val")
+    cfg = os.path.join(folder, "val9.json")
+    t0 = time.monotonic()
+    vids, listing = write_media(folder, MEDIA_SEED)
+    results["media_write_s"] = time.monotonic() - t0
+    log("  wrote %d folders of %d .ppm frames in %.1f s"
+        % (MEDIA_VIDEOS, MEDIA_FRAMES, results["media_write_s"]))
+    media_pack(results, folder, listing)
+    feed, logits = media_infer(results, folder, cfg, vids)
+    media_card_vs_cpu(results, folder, train_path, val_path, vids)
+    torch.cuda.empty_cache()
+    media_export(results, folder, cfg, feed, logits)
+    torch.cuda.empty_cache()
+    media_caption(results, folder)
+
+
 # ---------------------------------------------------------------- main
 def kernel_entry(name, source, replaces, launches, cases, main_cases):
     """One kernel's line entry.  Times and bounds are for the launches of
@@ -2701,6 +3111,11 @@ def main(argv=None):
         phase_run(results, folder, train_path)
         results["run_phase_s"] = time.monotonic() - t0
         log("  phase 9 took %.1f s" % results["run_phase_s"])
+        torch.cuda.empty_cache()
+        t0 = time.monotonic()
+        phase_media(results, folder, train_path)
+        results["media_phase_s"] = time.monotonic() - t0
+        log("  phase 10 took %.1f s" % results["media_phase_s"])
     finally:
         shutil.rmtree(folder, ignore_errors=True)
 

@@ -116,6 +116,75 @@ def test_run_driver_slice_modules_are_checked():
         assert "torch.utils.tensorboard" not in top, rel
 
 
+def test_packing_and_tools_slice_modules_are_checked():
+    """The packing, caption preprocessing, inference and export modules
+    are among the sources checked above, import neither JAX, optax nor
+    the JAX package, nothing of yaml or PIL at module level, and the
+    packer and its samplers no torch at all."""
+    sources = {os.path.relpath(p, REPO) for p in _port_sources()}
+    no_torch = ("video_learning_tpu_torch/data/serialize.py",
+                "video_learning_tpu_torch/data/samplers.py")
+    for rel in no_torch + (
+            "video_learning_tpu_torch/data/imgproc.py",
+            "video_learning_tpu_torch/tools/check_serialized_data.py",
+            "video_learning_tpu_torch/tools/compute_image_mean.py",
+            "video_learning_tpu_torch/tools/process_annotations.py",
+            "video_learning_tpu_torch/tools/produce_vocab_embeddings.py",
+            "video_learning_tpu_torch/tools/caption_vocab_tools.py",
+            "video_learning_tpu_torch/tools/infer.py",
+            "video_learning_tpu_torch/tools/export_serving.py",
+            "video_learning_tpu_torch/val.py",
+            "video_learning_tpu_torch/serving.py"):
+        assert rel in sources
+        found = _imported_modules(os.path.join(REPO, rel))
+        roots = {n.split(".")[0] for n, _ in found}
+        assert not roots & {"jax", "jaxlib", "optax", "video_learning_tpu"}
+        assert not {n.split(".")[0] for n, top in found if top} & \
+            {"yaml", "PIL"}, rel
+        if rel in no_torch:
+            assert "torch" not in roots, rel
+
+
+def test_packer_and_its_workers_run_without_torch_pil_or_yaml(tmp_path):
+    """``python -m video_learning_tpu_torch.data.serialize`` packs a .ppm
+    video set from a JSON config with two spawned workers where torch,
+    PIL, yaml and JAX cannot be imported (a package of each name that
+    raises on import is first on the path the workers inherit)."""
+    import json
+    blocker = tmp_path / "blocker"
+    for name in ("torch", "PIL", "yaml", "jax", "video_learning_tpu"):
+        (blocker / name).mkdir(parents=True)
+        (blocker / name / "__init__.py").write_text(
+            "raise ImportError('%s imported by the packer')\n" % name)
+    rs = np.random.RandomState(0)
+    lines = []
+    for v in range(2):
+        vdir = tmp_path / ("v%d" % v)
+        vdir.mkdir()
+        for i in range(6):
+            with open(vdir / ("f%02d.ppm" % i), "wb") as f:
+                f.write(b"P6\n10 8\n255\n")
+                f.write(rs.randint(0, 256, (8, 10, 3), np.uint8).tobytes())
+        lines.append("%s %d\n" % (vdir, v))
+    (tmp_path / "list").write_text("".join(lines))
+    cfg = tmp_path / "pack.json"
+    cfg.write_text(json.dumps({"serialize": {
+        "input_files": [str(tmp_path / "list")], "run_id": "iso",
+        "num_processes": 2, "raw_image_shape": [8, 10, 3],
+        "clip_offset_or_num": 2, "num_frames_per_clip": 2,
+        "clipframe_mode": "defs.clipframe_mode.rand_clips",
+        "generation_error": "defs.generation_error.abort",
+        "frame_format": "ppm", "log_folder": str(tmp_path), "seed": 1}}))
+    env = dict(os.environ, PYTHONPATH="%s:%s" % (blocker, REPO))
+    res = subprocess.run(
+        [sys.executable, "-m", "video_learning_tpu_torch.data.serialize",
+         str(cfg)], cwd=tmp_path, env=env, capture_output=True, text=True,
+        timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert "Validation completed error-free" in res.stderr
+    assert os.path.getsize(tmp_path / "list.tfrecord") > 2 * 2 * 2 * 240
+
+
 def test_json_config_loads_with_yaml_blocked(tmp_path):
     """With yaml, PIL and JAX unimportable (the GPU machine has no
     PyYAML), a JSON run config still loads through

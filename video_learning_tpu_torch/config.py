@@ -117,9 +117,9 @@ class CaptionOpts:
     length_norm = 0.0
 
 
-def load_run_document(init_file):
-    """The ``run:`` document of a config file: parsed as JSON when the
-    file is JSON, else as YAML (PyYAML imported only here)."""
+def load_documents(init_file):
+    """Every document of a config file as one dict: parsed as JSON when
+    the file is JSON, else as YAML (PyYAML imported only here)."""
     with open(init_file, "r") as f:
         text = f.read()
     try:
@@ -129,11 +129,24 @@ def load_run_document(init_file):
             import yaml
         except ImportError:
             error("%s is not JSON, and PyYAML is not installed to read it "
-                  "as YAML: write the run document as JSON" % init_file)
+                  "as YAML: write the config as JSON" % init_file)
         docs = yaml.safe_load(text)
-    if not isinstance(docs, dict) or "run" not in docs:
-        error("No run: document in %s" % init_file)
-    return docs["run"]
+    if not isinstance(docs, dict):
+        error("%s holds no named documents" % init_file)
+    return docs
+
+
+def load_document(init_file, name):
+    """The ``name:`` document of a config file (``load_documents``)."""
+    docs = load_documents(init_file)
+    if name not in docs:
+        error("No %s: document in %s" % (name, init_file))
+    return docs[name]
+
+
+def load_run_document(init_file):
+    """The ``run:`` document of a config file."""
+    return load_document(init_file, "run")
 
 
 def _host_shard_slot():
@@ -724,12 +737,15 @@ class GeometryDataset:
     ``vocabulary`` (list of tokens with BOS, EOS and UNK), an
     ``embedding_matrix`` (V, E) in vocabulary order, the padded word-grid
     length ``max_sequence_length`` (T) and the longest caption
-    ``max_caption_length`` (T - 1 unless given)."""
+    ``max_caption_length`` (T - 1 unless given).  Its frames are
+    preprocessed on the device when it has an imgproc chain, unless
+    ``device_preprocess`` says otherwise (then they come preprocessed,
+    float32 at ``image_shape``)."""
 
     def __init__(self, tag, image_shape, fpc=1, cpv=1, imgproc=None,
                  raw_image_shape=None, mean_scalars=None, vocabulary=None,
                  embedding_matrix=None, max_sequence_length=None,
-                 max_caption_length=None):
+                 max_caption_length=None, device_preprocess=None):
         from video_learning_tpu_torch.data.imgproc import ImageProcessor
         self.tag = tag
         self.image_shape = tuple(int(s) for s in image_shape)
@@ -751,7 +767,8 @@ class GeometryDataset:
                                 if raw_image_shape else None)
         self.mean_scalars = (list(mean_scalars) if mean_scalars is not None
                              else None)
-        self.device_preprocess = bool(self.imgproc)
+        self.device_preprocess = bool(self.imgproc) \
+            if device_preprocess is None else bool(device_preprocess)
         self.processor = None
         if self.device_preprocess:
             self.processor = ImageProcessor(self.imgproc,
@@ -776,7 +793,8 @@ class GeometryDataset:
                 "mean_scalars": self.mean_scalars,
                 "vocabulary": self.vocabulary,
                 "max_sequence_length": self.max_sequence_length,
-                "max_caption_length": self.max_caption_length}
+                "max_caption_length": self.max_caption_length,
+                "device_preprocess": self.device_preprocess}
 
 
 class GeometryFeeder:

@@ -8,7 +8,8 @@ consumes; ``process_batch`` runs the same chain on the host (a dataset
 with ``device_preprocess: false``) from one such draw per batch.  The
 draws use the same numpy stream as the JAX package, so one
 ``random.Random`` state gives both packages identical crops and mirrors.
-PIL is imported only where an image is read or resized.
+PIL is imported only where an image is read or resized; binary netpbm
+frames at the raw shape are read with numpy alone.
 """
 
 import numpy as np
@@ -17,10 +18,23 @@ from video_learning_tpu_torch.defs import defs
 from video_learning_tpu_torch.utils import error
 
 
-def imresize(image, shape):
+def _pil_image(what):
+    """PIL's Image module, or a FrameworkError naming ``what`` needed it
+    and the missing module."""
+    try:
+        from PIL import Image
+    except ImportError:
+        error("%s needs PIL (module 'PIL', the Pillow package), which is "
+              "not installed; binary .ppm / .pgm frames at the raw shape "
+              "are read without it" % what)
+    return Image
+
+
+def imresize(image, shape, what="an image"):
     """uint8 bilinear resize via PIL (the semantics of
-    ``scipy.misc.imresize``).  ``shape`` is (H, W) or (H, W, C)."""
-    from PIL import Image
+    ``scipy.misc.imresize``).  ``shape`` is (H, W) or (H, W, C); ``what``
+    names the image in the error where PIL is missing."""
+    Image = _pil_image("Resizing %s" % what)
     h, w = int(shape[0]), int(shape[1])
     arr = np.asarray(image)
     if arr.dtype != np.uint8:
@@ -31,17 +45,61 @@ def imresize(image, shape):
     return np.asarray(pil)
 
 
+def _read_netpbm(path):
+    """A binary P6 (RGB) or P5 (gray) file with maxval 255 as a uint8
+    (H, W, 3) or (H, W) array, else None."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:2] not in (b"P6", b"P5"):
+        return None
+    fields, pos = [], 2
+    while len(fields) < 3:
+        while pos < len(data) and data[pos:pos + 1].isspace():
+            pos += 1
+        if data[pos:pos + 1] == b"#":
+            while pos < len(data) and data[pos:pos + 1] not in b"\r\n":
+                pos += 1
+            continue
+        start = pos
+        while pos < len(data) and data[pos:pos + 1].isdigit():
+            pos += 1
+        if start == pos:
+            return None
+        fields.append(int(data[start:pos]))
+    width, height, maxval = fields
+    channels = 3 if data[:2] == b"P6" else 1
+    size = width * height * channels
+    # exactly one whitespace byte separates maxval from the raster
+    if maxval != 255 or len(data) < pos + 1 + size or \
+            not data[pos:pos + 1].isspace():
+        return None
+    raster = np.frombuffer(data, np.uint8, size, pos + 1)
+    return raster.reshape((height, width, channels)[:2 + (channels == 3)])
+
+
 def read_image(imagepath, raw_image_shape=None):
     """Read an image from disk: grayscale -> 3 channels, non-RGB channels
-    dropped, RGB -> BGR, optionally resized to the raw shape."""
-    from PIL import Image
-    image = np.asarray(Image.open(imagepath))
+    dropped, RGB -> BGR, optionally resized to the raw shape.
+
+    A binary P6 / P5 file with maxval 255 is decoded with numpy, and a
+    ``raw_image_shape`` equal to its own shape needs no resize (PIL's
+    same-size resize is a copy), so such a file reads without PIL to the
+    array PIL gives.  Every other file, and every real resize, goes
+    through PIL."""
+    image = None
+    if str(imagepath).lower().endswith((".ppm", ".pgm", ".pnm")):
+        image = _read_netpbm(imagepath)
+    if image is None:
+        Image = _pil_image("Reading %s" % imagepath)
+        image = np.asarray(Image.open(imagepath))
     if image.ndim <= 2:
         image = np.repeat(image[:, :, np.newaxis], 3, 2)
     image = image[:, :, :3]
     image = image[:, :, ::-1]
     if raw_image_shape is not None:
-        image = imresize(image, raw_image_shape)
+        if tuple(raw_image_shape[:2]) == image.shape[:2]:
+            return np.ascontiguousarray(image)
+        image = imresize(image, raw_image_shape, what=imagepath)
     return image
 
 

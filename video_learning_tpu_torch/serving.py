@@ -1,9 +1,9 @@
 """The serving forward and its artifact.
 
-Counterpart of ``video_learning_tpu/val.py`` ``build_serving_fn`` (with
-``_calibration_ranges`` / ``_maybe_quantize``) and the load side of
-``video_learning_tpu/tools/export_serving.py``.  A ``ServingModule`` runs
-exactly the validation forward: uint8 frames and host-drawn (crop_y,
+Counterpart of the load side of
+``video_learning_tpu/tools/export_serving.py`` (``tools/export_serving.py``
+is the export side).  A ``ServingModule`` runs exactly the validation
+forward, ``val.serving_forward``: uint8 frames and host-drawn (crop_y,
 crop_x, mirror) triples go to the device, are preprocessed there
 (``ops/preprocess.py``) and run through ``Model.apply(train=False)``
 under ``torch.inference_mode()``.
@@ -37,8 +37,12 @@ its meta's output is ``{"kind": "token_ids", "vocabulary": [...],
 artifact, and ``captions`` / ``captions_from_ids`` turn rows into
 strings cut at the first EOS.
 
-The artifact is a zip of ``meta.json`` (the JAX meta keys, plus the
-model spec that rebuilds the DAG, caption options included),
+The artifact is a zip of ``meta.json`` (the JAX meta keys but the JAX
+lowering's ``platforms``, ``trace_platform``, ``jax_version`` and
+``mesh``, plus the model spec that rebuilds the DAG, caption options
+included; ``ema`` says whether EMA weights were baked in and ``run_id``
+names the run an export came from, false and null for a module built
+otherwise and in artifacts written before they were recorded),
 ``params.npz`` (JAX flat names and layouts, so the artifact is also a
 checkpoint for either package, float even for an int8 module) and, for a
 captioner, ``embeddings.npz`` (each caption dataset's embedding matrix
@@ -64,6 +68,7 @@ from video_learning_tpu_torch.models.pipeline import Model
 from video_learning_tpu_torch.ops.preprocess import (make_preprocessor,
                                                      supports_device_path)
 from video_learning_tpu_torch.utils import error, resolve_device
+from video_learning_tpu_torch.val import serving_forward
 
 FORMAT = "vlt-torch-1"
 _META_NAME = "meta.json"
@@ -75,9 +80,10 @@ _TORCH_DTYPES = {"uint8": torch.uint8, "int32": torch.int32,
                  "float32": torch.float32}
 
 
-def model_spec(settings):
+def model_spec(settings, datasets=None):
     """JSON-able description of the DAG, its datasets' geometry and
-    vocabularies, and the caption options."""
+    vocabularies (``datasets``: their specs; default, those of a
+    ``GeometryFeeder``), and the caption options."""
     cap = settings.captioning
     return {
         "captioning": (None if cap is None else
@@ -88,7 +94,8 @@ def model_spec(settings):
         "pipelines": {name: {f: getattr(settings.pipelines[name], f)
                              for f in NETWORK_FIELDS}
                       for name in settings.pipeline_names},
-        "datasets": [d.spec() for d in settings.feeder.datasets],
+        "datasets": (datasets if datasets is not None else
+                     [d.spec() for d in settings.feeder.datasets]),
     }
 
 
@@ -116,7 +123,8 @@ def settings_from_spec(spec, embedding_matrices=None):
                          vocabulary=d.get("vocabulary"),
                          embedding_matrix=embedding_matrices.get(d["tag"]),
                          max_sequence_length=d.get("max_sequence_length"),
-                         max_caption_length=d.get("max_caption_length"))
+                         max_caption_length=d.get("max_caption_length"),
+                         device_preprocess=d.get("device_preprocess"))
          for d in spec["datasets"]])
     if spec.get("captioning") is not None:
         s.captioning = CaptionOpts()
@@ -126,6 +134,35 @@ def settings_from_spec(spec, embedding_matrices=None):
             setattr(s.captioning, field, value)
     s.val = ValOpts()
     return s
+
+
+def serving_model(settings, model):
+    """The Model an artifact of ``model`` rebuilds on ``load``: the same
+    DAG over its datasets' geometry alone.  ``model`` is built from a run
+    config (``Settings.initialize``); its datasets of the current phase
+    that feed it frames become geometry datasets."""
+    sources = {tag: src for _, tag, src in model.visual_sources()}
+    datasets, embeddings = [], {}
+    for d in settings.feeder.get_datasets():
+        src = sources.get(d.tag)
+        if src is None:
+            continue
+        datasets.append({
+            "tag": d.tag, "image_shape": list(d.desired_image_shape),
+            "fpc": int(src.fpc), "cpv": int(src.cpv),
+            "imgproc": list(d.imgproc),
+            "raw_image_shape": (list(d.raw_image_shape)
+                                if d.raw_image_shape else None),
+            "mean_scalars": (None if d.mean_scalars is None else
+                             [float(m) for m in d.mean_scalars]),
+            "vocabulary": d.vocabulary,
+            "max_sequence_length": d.max_sequence_length,
+            "max_caption_length": d.max_caption_length,
+            "device_preprocess": bool(d.device_preprocess)})
+        if d.embedding_matrix is not None:
+            embeddings[d.tag] = d.embedding_matrix
+    return Model(settings_from_spec(model_spec(settings, datasets),
+                                    embeddings))
 
 
 def _to_device(tree, device):
@@ -142,10 +179,12 @@ class ServingModule:
     ``device``, in float or ``quantize`` mode.  ``int8_static`` takes its
     activation ranges from ``act_ranges`` ({pipeline: {layer: amax}}, as
     ``meta["act_ranges"]`` holds them) or calibrates them on
-    ``calib_feed``."""
+    ``calib_feed``.  ``ema`` (whether ``params`` are EMA weights) and
+    ``run_id`` (the run they come from) are recorded in the meta."""
 
     def __init__(self, model, params, batch_items=8, device="cuda",
-                 quantize=None, calib_feed=None, act_ranges=None):
+                 quantize=None, calib_feed=None, act_ranges=None,
+                 ema=False, run_id=None):
         self.device = resolve_device(device)
         self.model = model
         self.params = _to_device(params, self.device)
@@ -204,6 +243,8 @@ class ServingModule:
             "clips_per_item": int(model.visual_sources()[0][2].cpv),
             "compute_dtype": str(model.settings.compute_dtype),
             "quantize": self.quantize,
+            "ema": bool(ema),
+            "run_id": None if run_id is None else str(run_id),
             "model": model_spec(model.settings),
         }
         self._params = self.params
@@ -255,12 +296,9 @@ class ServingModule:
     def _forward(self, feed, params, **kw):
         """Device preprocessing and the model on a feed of device
         tensors; a captioner decodes."""
-        with torch.inference_mode():
-            for key, pre in self._pre.items():
-                feed[key] = pre(feed[key], feed.pop(key + "/proc_params"))
-            return self.model.apply(
-                params, feed, train=False,
-                decode=self.model.caption_dataset is not None, **kw)
+        return serving_forward(
+            self.model, self._pre, params, feed,
+            decode=self.model.caption_dataset is not None, **kw)
 
     def _calibrate(self, arrays):
         """{pipeline: {layer: amax}} of one float forward over the
@@ -371,7 +409,9 @@ def load(path, device="cuda"):
                            batch_items=meta.get("buckets",
                                                 meta["batch_items"]),
                            device=device, quantize=meta.get("quantize"),
-                           act_ranges=meta.get("act_ranges"))
+                           act_ranges=meta.get("act_ranges"),
+                           ema=meta.get("ema", False),
+                           run_id=meta.get("run_id"))
     if module.meta["inputs"] != meta["inputs"]:
         error("Artifact inputs %s do not match the rebuilt model's %s"
               % (meta["inputs"], module.meta["inputs"]))

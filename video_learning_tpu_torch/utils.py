@@ -4,8 +4,9 @@ the PyTorch port.
 A short counterpart of ``video_learning_tpu/utils.py``: the same logger
 name ("vlt") and the same ``error`` contract (log, then raise
 ``FrameworkError``), the config scalar check ``as_num``, the run-folder
-helpers, ``elapsed_str``, ``duplicates`` and the label encoder, without
-that module's email notifier or its JAX debug printing.
+helpers, ``elapsed_str``, ``sublist``, ``duplicates``, the file readers
+and the label encoder, without that module's email notifier or its JAX
+debug printing.
 """
 
 import logging
@@ -77,6 +78,10 @@ def configure_logging(logfile, logging_level):
         logging_level = resolved
     logger = logging.getLogger(_LOGGER)
     logger.setLevel(logging_level)
+    for handler in logger.handlers:
+        # a log file of an earlier configuration (the packer's, in a
+        # temporary folder infer removes) is closed, not leaked
+        handler.close()
     logger.handlers = []
     fmt = logging.Formatter("%(asctime)s| %(levelname)7s - %(filename)15s - "
                             "line %(lineno)4d - %(message)s")
@@ -115,6 +120,12 @@ def elapsed_str(previous_tic, up_to=None):
     return "%d:%02d:%02d" % (h, m, s)
 
 
+def sublist(llist, sublist_length):
+    """``llist`` in consecutive chunks of ``sublist_length``."""
+    return [llist[i:i + sublist_length]
+            for i in range(0, len(llist), sublist_length)]
+
+
 def duplicates(llist):
     """The set of items that occur more than once in ``llist``."""
     seen, dups = set(), set()
@@ -141,6 +152,11 @@ def labels_to_one_hot(labels, num_classes):
     for i, item in enumerate(norm):
         onehots[i, item] = 1
     return onehots
+
+
+def read_file_lines(filename):
+    with open(filename, "r") as f:
+        return [line.strip() for line in f]
 
 
 def read_file_dict(filename):

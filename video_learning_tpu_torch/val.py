@@ -17,8 +17,14 @@ averaged over the chunks unweighted and top-k weighted by chunk size;
 and for a captioner the decoded rows written as ``coco.results.json``
 and scored by ``metrics/coco_eval.py`` into ``coco.results.json.eval.json``.
 
+``serving_forward`` is the forward itself, the one computation behind
+``run_forward``, ``build_serving_fn`` (the serving computation that
+``tools/export_serving`` takes its signature from) and
+``serving.ServingModule``, so evaluation, inference and the exported
+artifact cannot drift apart.
+
 Not ported: the mesh and ``_local_rows`` (multi-GPU, ROADMAP Queue 1,
-item 6) and ``build_serving_fn`` (export, item 4).
+item 6).
 """
 
 import json
@@ -33,6 +39,24 @@ from video_learning_tpu_torch.ops.preprocess import (make_preprocessor,
                                                      supports_device_path)
 from video_learning_tpu_torch.utils import (debug, duplicates, error, info,
                                             resolve_device, warning)
+
+
+def serving_forward(model, preprocessors, params, feed, decode=False,
+                    quantize=None, **kw):
+    """The evaluation forward on a feed of device tensors, under
+    ``torch.inference_mode()``: each visual input with a
+    ``<key>/proc_params`` entry through its device preprocessor
+    (``preprocessors``: {key: preprocessor}), then
+    ``model.apply(train=False)``; ``decode`` runs a captioner's decode,
+    ``quantize`` the int8 forward on pre-quantized ``params``.  ``feed``
+    is changed in place."""
+    with torch.inference_mode():
+        for key, pre in preprocessors.items():
+            pkey = key + "/proc_params"
+            if pkey in feed:
+                feed[key] = pre(feed[key], feed.pop(pkey))
+        return model.apply(params, feed, train=False, decode=decode,
+                           quantize=quantize, **kw)
 
 
 def _first_leaf(tree):
@@ -86,25 +110,20 @@ class Validation:
             info("Evaluation forward quantized: %s (w8a8 frame encoders)"
                  % quantize)
 
-    def _preprocessed(self, feed):
-        """The feed on the device, its visual inputs preprocessed."""
-        feed = {k: (v if isinstance(v, torch.Tensor)
+    def _on_device(self, feed):
+        """The feed's arrays as tensors on the device (a new dict)."""
+        return {k: (v if isinstance(v, torch.Tensor)
                     else torch.from_numpy(np.ascontiguousarray(v)))
                 .to(self.device) for k, v in feed.items()}
-        for key, pre in self._preprocessors.items():
-            pkey = key + "/proc_params"
-            if pkey in feed:
-                feed[key] = pre(feed[key], feed.pop(pkey))
-        return feed
 
     def _calibration_ranges(self, params, feed, decode=False):
         """{pipeline: {layer: amax}} of one float forward over ``feed``
         (the first eval batch), through the same preprocessing and DAG as
         the evaluation forward: the static scales of int8_static."""
         taps = {}
-        with torch.inference_mode():
-            self.model.apply(params, self._preprocessed(feed), train=False,
-                             decode=decode, calib_taps=taps)
+        serving_forward(self.model, self._preprocessors, params,
+                        self._on_device(feed), decode=decode,
+                        calib_taps=taps)
         if not taps:
             error("int8_static calibration collected no activation "
                   "ranges — no pipeline has an int8-capable frame "
@@ -132,6 +151,7 @@ class Validation:
                           "batch; this entry point quantizes without one "
                           "— use 'int8' (dynamic scales) here")
                 ranges = self._calibration_ranges(params, feed, decode)
+            self.act_ranges = ranges
             with torch.inference_mode():
                 self._q_params = self.model.quantize_params(
                     params, act_ranges=ranges)
@@ -139,15 +159,51 @@ class Validation:
             self._q_src_leaf0 = leaf0
         return self._q_params
 
+    def build_serving_fn(self, params, sample_feed, decode=False):
+        """The bare serving computation: the evaluation forward
+        (``serving_forward``) with the parameters closed over (quantized
+        once, ``int8_static`` calibrated on ``sample_feed``, whose ranges
+        ``act_ranges`` then holds) and the visual feed arrays as a flat
+        positional signature.  ``decode`` runs a captioner's decode,
+        returning (B, T) word indices.  ``sample_feed`` (a real,
+        geometry-padded feed) gives the shapes and dtypes.
+
+        Returns ``(serve_fn, names, specs)``: ``serve_fn(*arrays)`` takes
+        numpy arrays or tensors and returns the output tensor on the
+        device, ``names[i]`` is the feed key of positional input ``i``
+        and ``specs[i]`` its ``(shape, dtype name)``."""
+        quantize = getattr(self.settings.val, "quantize", None)
+        params = self._maybe_quantize(params, sample_feed, decode)
+        names = []
+        for key, itype, _ in self.model.required_input:
+            if itype != defs.net_input.visual:
+                continue
+            names.append(key)
+            pkey = key + "/proc_params"
+            if key in self._preprocessors and pkey in sample_feed:
+                names.append(pkey)
+        if not names:
+            error("No visual inputs to export")
+
+        def serve(*arrays):
+            return serving_forward(
+                self.model, self._preprocessors, params,
+                self._on_device(dict(zip(names, arrays))), decode=decode,
+                quantize=quantize)
+
+        specs = [(tuple(sample_feed[n].shape),
+                  str(sample_feed[n].dtype).replace("torch.", ""))
+                 for n in names]
+        return serve, names, specs
+
     def run_forward(self, params, feed, decode=False):
         """Logits (float32 numpy) of a padded feed, or a captioner's
         decoded (items, T) int32 word indices with ``decode``."""
         quantize = getattr(self.settings.val, "quantize", None)
         params = self._maybe_quantize(params, feed, decode)
-        with torch.inference_mode():
-            out = self.model.apply(params, self._preprocessed(feed),
-                                   train=False, decode=decode,
-                                   quantize=quantize)
+        out = serving_forward(self.model, self._preprocessors, params,
+                              self._on_device(feed), decode=decode,
+                              quantize=quantize)
         out = out.to(torch.int32 if decode else torch.float32)
         return out.cpu().numpy()
 
@@ -275,6 +331,7 @@ class Validation:
         self._q_src_params = None
         self._q_src_leaf0 = None
         self._q_params = None
+        self.act_ranges = None
 
     def get_accuracy(self, k=1):
         """Accuracy over the saved chunks and the live rows; ``k`` > 1 is
