@@ -12,9 +12,10 @@ Phases (each raises on failure; nothing is caught and passed over):
    with times beside the bound and the one-call library equivalent
    where there is one;
 3. the full-width flagship serving forward (227x227, fpc 16, 2x256 LSTM,
-   101 classes, bf16, random weights from a fixed seed): the launch
-   counters must rise by exactly 2 (LRN) and 32 (lstm_step) in one
-   forward with the plain versions locked out, the logits must be finite
+   101 classes, bf16, random weights from a fixed seed): with the plain
+   versions locked out, the first forward (eager, then the capture of
+   its graph) launches exactly 2 LRN and 32 lstm_step kernels and one
+   replay runs exactly as many, the logits must be finite
    and of shape (clips, 101), one clip in float32 must agree with the same
    forward on the CPU, and forwards at 32 clips are timed;
 4. the HTTP server over a saved and reloaded serving module: single and
@@ -23,9 +24,10 @@ Phases (each raises on failure; nothing is caught and passed over):
 5. the full-width flagship training step (128 clips x 16 frames of
    240x320 uint8, device crop/mean/mirror, bf16, SGD at lr 0.001 with a
    global-norm clip of 10, as the JAX bench.py trains): with the plain
-   versions locked out one step launches exactly 2 LRN, 2 LRN backward,
-   32 lstm_step and 1 conv1_dw_shifted kernels (both LRN backward
-   launches in its vector design), and a step with
+   versions locked out each of the first three steps (eager; eager, then
+   the capture; a replay) launches exactly 2 LRN, 2 LRN backward, 32
+   lstm_step and 1 conv1_dw_shifted kernels (both LRN backward launches
+   in its vector design), and a step with
    ``conv1_dw="blocked"`` launches 1 conv1_dw and moves conv1 as the
    shifted one does; one float32 step at 1 clip agrees between the card
    and the CPU; training steps are timed and one is profiled, which also
@@ -133,10 +135,55 @@ Phases (each raises on failure; nothing is caught and passed over):
    (``--checkpoint none``, T from the packed set's .size) gives 8
    captions with 2 lrn and 20 lstm_step per decode batch, and its
    export's token ids equal infer's.
+11. compiled programs.  First the card's dropout against its
+   definition: two eager float32 steps of 32 clips with dropout 0.5 and
+   accum_steps 2, each mask read where the model calls it (kept units
+   exactly x / 0.5, kept shares within 5 sigma of 0.5, the micro-batches'
+   and the steps' masks agreeing on a share within 5 sigma of 0.5, the
+   generators' seeds distinct).  Then every graphed program against the
+   eager one it replaces, in float32 with TF32 off and cuDNN's
+   deterministic algorithms (the eager step is not reproducible without
+   them): the 8-clip training step with dropout 0.5 in two
+   configurations (Adam with an EMA and a watched tensor; SGD with
+   accum_steps 2), 3 replays after a ``load_state_dict`` into the
+   captured engine against 3 eager steps from the same state (metrics,
+   and every parameter, moment, count and EMA tensor within 1e-3 x its
+   largest eager update + 1e-7 x its max|value|), ``compile_scan_steps(3)``
+   as one graph against the eager loop with the same dropout stream,
+   greedy and beam-4 tokens of 64 items at phase 6's width (phase 6's
+   tie rule), and the classifier's float32 and int8_static serving
+   forward at buckets 1, 8 and 32 (logits within 1e-5 x max(1,
+   max|logit|)).  What one replay runs, counted from the profiler's
+   kernel records by symbol, and what an eager call launches, counted by
+   the wrappers, equal the listed counts: per training step lrn 2,
+   lrn_bwd 2, lstm_step 32, conv1_dw_shifted 1 (twice each with
+   accum_steps 2), 3 times that per scan, per decode lrn 2 and lstm_step
+   20, per forward lrn 2 and lstm_step 32 (and int8_mm 9).  Then, in
+   bf16 at full width and recorded, not held: eager and graphed times
+   of the 128-clip step and ``compile_scan_steps(6)``, the greedy
+   decodes at 1, 8, 32 and 64 items and beam-4 at 64 (with lstm_step's
+   time per launch inside a graph), the 64-caption training step and the
+   serving forward at buckets 1, 8 and 32, each with its capture time,
+   pool memory and the card's idle share of one profiled replay, and
+   the copy of a 128-clip feed into the captured buffers.
 
-The line before the last lists every ported kernel as JSON (launches per
-serving forward for lrn and lstm_step, per training step for the
-backward kernels); the last line is ``{"ok": true, "device": {...}}``.
+Phases 3-10 run the port's defaults, which on the card are graph
+replays: a program's first call at a shape runs eagerly and then
+captures it (a training step's second), later calls replay.  Every
+capture runs with the plain versions locked out.  A launch count is
+measured: a wrapper counts the kernels it launches to run at once (a
+launch that a capture records counts apart, ``graphs.py``), and inside
+the blocks that count, each replay runs under the profiler and its
+kernels are counted from the profiler's kernel records by symbol, and
+must equal what its capture recorded.  Times taken in those blocks leave
+the profiler's own time out.
+
+The line before the last lists every ported kernel as JSON; its launches
+are those of the main path's counted runs: phase 3's two forwards (the
+first eager, then a replay) for lrn and lstm_step, phase 5's three
+steps (two eager, then a replay) for lrn_bwd and conv1_dw_shifted, and
+the eager blocked step for conv1_dw.  The last line is ``{"ok": true,
+"device": {...}}``.
 Without a CUDA device, or without the package beside it, the script exits
 nonzero and prints no result.
 """
@@ -149,6 +196,7 @@ import json
 import math
 import os
 import random
+import re
 import resource
 import shutil
 import subprocess
@@ -162,6 +210,7 @@ import torch
 import torch.nn.functional as F
 
 from video_learning_tpu_torch import checkpoint, run_task, serving
+from video_learning_tpu_torch import graphs as graphs_mod
 from video_learning_tpu_torch import val as val_mod
 from video_learning_tpu_torch.batching import BatchGeometry
 from video_learning_tpu_torch.config import Settings
@@ -173,6 +222,7 @@ from video_learning_tpu_torch.flagship import (SERVING_IMGPROC, SERVING_MEAN,
                                                caption_flagship, flagship)
 from video_learning_tpu_torch.models import alexnet, layers
 from video_learning_tpu_torch.models import lstm as decode_mod
+from video_learning_tpu_torch.models import pipeline as pipeline_mod
 from video_learning_tpu_torch.models.pipeline import Model
 from video_learning_tpu_torch.ops import _build
 from video_learning_tpu_torch.ops import conv1_dw as conv1_mod
@@ -187,7 +237,7 @@ from video_learning_tpu_torch.tools import infer as infer_mod
 from video_learning_tpu_torch.tools import process_annotations
 from video_learning_tpu_torch.tools import produce_vocab_embeddings
 from video_learning_tpu_torch.tools import serve as serve_mod
-from video_learning_tpu_torch.train import Train
+from video_learning_tpu_torch.train import WARMUP_STEPS, Train
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM bandwidth, the
 # float32 rate outside the tensor cores and the dense bf16 tensor-core
@@ -546,9 +596,109 @@ _WRAPPERS = {"lrn": lrn_mod.lrn, "lrn_bwd": lrn_mod.lrn_backward,
              "int8_mm": int8_mod.int8_mm}
 
 
+# each kernel by the symbol the profiler records for it (conv1_dw's
+# template argument is by_rows: true for the shifted entry point;
+# int8_mm's GEMM is cuBLAS's s8 kernel), and the LRN backward's designs
+KERNEL_SYMBOLS = {"lrn": r"lrn_fwd_kernel<",
+                  "lrn_bwd": r"lrn_bwd_(vec_)?kernel<",
+                  "lstm_step": r"lstm_step_kernel\(",
+                  "conv1_dw": r"conv1_dw_(bf16|f32)<false>",
+                  "conv1_dw_shifted": r"conv1_dw_(bf16|f32)<true>",
+                  "int8_mm": r"gemm_s8|_s8s8|i8i8|imma"}
+BWD_SYMBOLS = {"staged": r"lrn_bwd_kernel<", "vector": r"lrn_bwd_vec_kernel<"}
+# a wrapper's name, as a program's capture records it, by its count's name
+_COUNT_NAMES = {"lrn_backward": "lrn_bwd"}
+
+
+def kernel_counts(prof, symbols=KERNEL_SYMBOLS):
+    """{kernel: records} of a profile's kernel records by symbol, and the
+    names of all its kernel records."""
+    from torch.autograd import DeviceType
+    names = [e.name for e in prof.events()
+             if e.device_type == DeviceType.CUDA]
+    return ({k: sum(1 for n in names if re.search(rx, n))
+             for k, rx in symbols.items()}, names)
+
+
+class _Meter:
+    """What graph replays run, measured.  While ``on`` (inside
+    ``_PlainLockedOut``) every ``graphs.Program.replay`` runs under the
+    profiler, after a sync (earlier work is not the replay's) and with one
+    after it; its kernels are counted from the profiler's kernel records
+    by symbol into ``kernels`` and ``variants``, and must equal what the
+    program's capture recorded.  ``overhead_s`` is the profiler's own
+    host time around the replays, which timed calls leave out."""
+
+    def __init__(self):
+        self.on = 0
+        self.reset()
+        self.overhead_s = 0.0
+        self.total_replays = 0
+
+    def reset(self):
+        self.replays = 0
+        self.kernels = dict.fromkeys(KERNEL_SYMBOLS, 0)
+        self.variants = dict.fromkeys(BWD_SYMBOLS, 0)
+
+
+_METER = _Meter()
+_REPLAY = graphs_mod.Program.replay
+_CAPTURE = graphs_mod.Program.capture
+
+
+def _metered_replay(program):
+    if not _METER.on:
+        return _REPLAY(program)
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    prof.start()
+    t1 = time.monotonic()
+    try:
+        out = _REPLAY(program)
+        torch.cuda.synchronize()
+        t2 = time.monotonic()
+    finally:
+        prof.stop()
+    ran, names = kernel_counts(prof)
+    designs, _ = kernel_counts(prof, BWD_SYMBOLS)
+    _METER.overhead_s += (t1 - t0) + (time.monotonic() - t2)
+    recorded = dict.fromkeys(KERNEL_SYMBOLS, 0)
+    for name, n in program.launch_counts().items():
+        recorded[_COUNT_NAMES.get(name, name)] = n
+    if ran != recorded:
+        raise AssertionError(
+            "a replay of %s ran %s (profiler), its capture recorded %s; "
+            "the kernels it ran: %s"
+            % (program.name, ran, recorded, sorted(set(names))))
+    _METER.replays += 1
+    _METER.total_replays += 1
+    for k, n in ran.items():
+        _METER.kernels[k] += n
+    for k, n in designs.items():
+        _METER.variants[k] += n
+    return out
+
+
+def _locked_capture(program, *args, **kwargs):
+    """Every capture runs with the plain versions locked out: what a
+    capture records runs at every replay."""
+    with _PlainLockedOut():
+        return _CAPTURE(program, *args, **kwargs)
+
+
+def install_meter():
+    """Every capture with the plain versions locked out, and replays
+    measured inside ``_PlainLockedOut``."""
+    graphs_mod.Program.capture = _locked_capture
+    graphs_mod.Program.replay = _metered_replay
+
+
 class _PlainLockedOut:
-    """Makes the plain versions raise while the main path runs: the
-    kernels' wrappers must not reach them for CUDA tensors."""
+    """The main path runs in this block: the plain versions raise (the
+    kernels' wrappers must not reach them for CUDA tensors), and graph
+    replays are measured (``_Meter``)."""
 
     def __enter__(self):
         self.saved = [getattr(mod, name) for mod, name in _PLAIN]
@@ -558,8 +708,11 @@ class _PlainLockedOut:
 
         for mod, name in _PLAIN:
             setattr(mod, name, forbidden)
+        _METER.on += 1
+        return self
 
     def __exit__(self, *exc):
+        _METER.on -= 1
         for (mod, name), fn in zip(_PLAIN, self.saved):
             setattr(mod, name, fn)
 
@@ -569,10 +722,22 @@ def reset_counts():
         fn.launches = 0
     lrn_mod.lrn_backward.variant_launches = dict.fromkeys(lrn_mod.VARIANTS,
                                                           0)
+    _METER.reset()
 
 
 def counts(names=("lrn", "lstm_step")):
-    return {name: _WRAPPERS[name].launches for name in names}
+    """Launches since ``reset_counts``: each wrapper's count of the
+    kernels it launched to run at once, plus what graph replays ran,
+    counted from the profiler (``_Meter``)."""
+    return {name: _WRAPPERS[name].launches + _METER.kernels[name]
+            for name in names}
+
+
+def variants():
+    """The LRN backward's launches by design, counted as ``counts``
+    counts them."""
+    return {k: lrn_mod.lrn_backward.variant_launches[k] + _METER.variants[k]
+            for k in lrn_mod.VARIANTS}
 
 
 def serving_inputs(processor, clips, seed):
@@ -598,18 +763,26 @@ def phase_forward(results):
     frames, prm = serving_inputs(processor, SERVE_CLIPS, seed=0)
     frames_dev = torch.from_numpy(frames).cuda()
     prm_dev = torch.from_numpy(prm).cuda()
-    module(frames_dev[:FPC], prm_dev[:FPC])      # first call: lazy set-up
-    torch.cuda.synchronize()
 
+    # the main path: the first forward runs eagerly and then captures the
+    # bucket's graph, the second is a replay
+    want = {"lrn": 2, "lstm_step": FPC * LAYERS}
     reset_counts()
     with _PlainLockedOut():
+        module(frames_dev, prm_dev)
+        torch.cuda.synchronize()
+        eager = counts()
         logits = module(frames_dev, prm_dev)
         torch.cuda.synchronize()
     launched = counts()
-    log("  one forward of %d clips launched %s" % (SERVE_CLIPS, launched))
-    if launched != {"lrn": 2, "lstm_step": FPC * LAYERS}:
-        raise AssertionError("expected 2 LRN and %d lstm_step launches per "
-                             "forward, got %s" % (FPC * LAYERS, launched))
+    replayed = {k: launched[k] - eager[k] for k in launched}
+    log("  the first forward of %d clips launched %s (wrappers), then "
+        "captured; a replay ran %s (profiler)"
+        % (SERVE_CLIPS, eager, replayed))
+    if eager != want or replayed != want or _METER.replays != 1:
+        raise AssertionError("expected %s in the first forward and in one "
+                             "replay, got %s and %s (%d replays)"
+                             % (want, eager, replayed, _METER.replays))
     if logits.shape != (SERVE_CLIPS, CLASSES) or \
             not np.all(np.isfinite(logits)):
         raise AssertionError("logits %s finite=%s"
@@ -723,7 +896,6 @@ def phase_serve(model, params, processor, results):
         raise AssertionError("server did not start")
     addr = started.addr
     stats = started.batcher.stats
-    reset_counts()
     latencies = []
     checked = []
 
@@ -733,31 +905,33 @@ def phase_serve(model, params, processor, results):
         latencies.append({"items": n_items, "ms": dt * 1e3})
         checked.append((n_items, out, frames, prm))
 
+    reset_counts()
     try:
-        for seed, n_items in enumerate((1, 3, 8)):
-            request(n_items, 100 + seed)
-        barrier = threading.Barrier(4)
-        errs = []
+        with _PlainLockedOut():
+            for seed, n_items in enumerate((1, 3, 8)):
+                request(n_items, 100 + seed)
+            barrier = threading.Barrier(4)
+            errs = []
 
-        def concurrent(n_items, seed):
-            try:
-                barrier.wait(timeout=60)
-                request(n_items, seed)
-            except BaseException as e:  # re-raised on the main thread
-                errs.append(e)
+            def concurrent(n_items, seed):
+                try:
+                    barrier.wait(timeout=60)
+                    request(n_items, seed)
+                except BaseException as e:  # re-raised on the main thread
+                    errs.append(e)
 
-        workers = [threading.Thread(target=concurrent, args=(n, 200 + i))
-                   for i, n in enumerate((1, 1, 3, 2))]
-        for w in workers:
-            w.start()
-        for w in workers:
-            w.join(timeout=600)
-        if errs or any(w.is_alive() for w in workers):
-            raise AssertionError("concurrent requests failed: %s" % errs)
-        metrics = get(addr, "/metrics")
-        get(addr, "/healthz")
-        launched = counts()
-        calls = sum(stats.device_calls.values())
+            workers = [threading.Thread(target=concurrent, args=(n, 200 + i))
+                       for i, n in enumerate((1, 1, 3, 2))]
+            for w in workers:
+                w.start()
+            for w in workers:
+                w.join(timeout=600)
+            if errs or any(w.is_alive() for w in workers):
+                raise AssertionError("concurrent requests failed: %s" % errs)
+            metrics = get(addr, "/metrics")
+            get(addr, "/healthz")
+            launched = counts()
+            calls = sum(stats.device_calls.values())
     finally:
         started.httpd.shutdown()
         thread.join(timeout=120)
@@ -860,7 +1034,7 @@ def phase_train(results):
     if launched != want:
         raise AssertionError("one training step launched %s, expected %s"
                              % (launched, want))
-    bwd_variants = dict(lrn_mod.lrn_backward.variant_launches)
+    bwd_variants = variants()
     log("  LRN backward launches by design: %s" % bwd_variants)
     if bwd_variants != {"staged": 0, "vector": 2}:
         raise AssertionError("the step's LRN backward launches were not "
@@ -888,18 +1062,34 @@ def phase_train(results):
                                                    float(d_s.abs().max())))
     log("  conv1 step, blocked vs shifted: max abs %.3g of max %.3g"
         % (step_err, float(d_s.abs().max())))
-    results["train_launches"] = launched
     results["train_lrn_bwd_variants"] = bwd_variants
     results["train_launches_blocked"] = launched_b
     results["train_conv1_step_blocked_vs_shifted_max_abs"] = step_err
     del blocked
 
+    # the main path goes on: the second step runs eagerly and then
+    # captures the step's graph, the third is a replay
+    feeds = [training_feed(processor, TRAIN_CLIPS, s, "cuda")
+             for s in (1, 2)]
+    total = dict(launched)
+    for i, f in enumerate(feeds):
+        metrics, launched = locked_step(shifted, f)
+        designs = variants()
+        log("  step %d (%s): %s; launched %s"
+            % (i + 2, ("eager, then the capture", "a replay")[i], metrics,
+               launched))
+        if launched != want or designs != {"staged": 0, "vector": 2} or \
+                _METER.replays != i:
+            raise AssertionError("step %d launched %s (%s) in %d replays, "
+                                 "expected %s" % (i + 2, launched, designs,
+                                                  _METER.replays, want))
+        total = {k: total[k] + launched[k] for k in total}
+    results["train_launches"] = total
+
     train_card_vs_cpu(results)
 
     # throughput: steps on a device-resident feed, host clock around
     # steps that end in a sync
-    feeds = [training_feed(processor, TRAIN_CLIPS, s, "cuda")
-             for s in (1, 2)]
     for f in feeds:
         shifted.run_step(dict(f))
     torch.cuda.synchronize()
@@ -928,7 +1118,11 @@ def step_card_vs_cpu(settings, model, start, feed, what):
     """One float32 training step on the card and on the CPU from the same
     parameters and feed; returns (loss rel error, worst gradient tensor
     rel norm).  ``settings`` trains by SGD at lr 1 without clipping, so
-    each parameter moves by exactly minus its gradient."""
+    each parameter moves by exactly minus its gradient.  Dropout is off:
+    the card draws its masks from the CUDA generator and the CPU from
+    its own, so the two devices' masks differ by design (phase 11 holds
+    the card's graphed step to its eager one with dropout on)."""
+    settings.train.dropout_keep_prob = 1.0
     steps = {}
     for device in ("cuda", "cpu"):
         eng = Train(settings, settings.feeder, model, params=start,
@@ -1062,6 +1256,55 @@ def first_difference(a, b):
     return None
 
 
+def decode_margins(model, params, feed, eos):
+    """Greedy (with its per-step logits) and beam-BEAM decodes of the
+    preprocessed ``feed`` through the decoder on ``Model.decoder_inputs``,
+    with the tie tests of phase 6's rule: ``tie_greedy(i, t)``, whether
+    item i's top-2 logit margin at step t lies within 1e-4 x max(1,
+    max|logit|), and ``tie_beam(i, t)``, whether the least gap among
+    its K + 1 best candidate scores up to step t lies within 1e-4 of
+    their scale."""
+    args = model.decoder_inputs(params, feed)
+    ids, logits = decode_mod.greedy_decode(
+        **args, return_type=defs.return_type.standard)
+    margins = []
+    top_k = decode_mod._top_k
+
+    def recording(x, k):
+        vals = torch.sort(x, dim=1, descending=True).values[:, :k + 1]
+        gaps = (vals[:, :-1] - vals[:, 1:]).min(dim=1).values
+        scale = vals.abs().max(dim=1).values.clamp(min=1.0)
+        margins.append((gaps / scale).cpu().numpy())
+        return top_k(x, k)
+
+    decode_mod._top_k = recording
+    try:
+        beam = decode_mod.beam_decode(eos_index=eos, beam_width=BEAM,
+                                      **args)
+    finally:
+        decode_mod._top_k = top_k
+    logits = logits.cpu().numpy()
+    margins = np.stack(margins, axis=1)
+    top2 = np.sort(logits, axis=-1)[..., -2:]
+
+    def tie_greedy(i, t):
+        margin = top2[i, t, 1] - top2[i, t, 0]
+        limit = 1e-4 * max(1.0, float(np.abs(logits[i, t]).max()))
+        log("  greedy step %d of item %d: reference top-2 margin %.3g "
+            "(limit %.3g)" % (t, i, margin, limit))
+        return margin < limit
+
+    def tie_beam(i, t):
+        least = float(margins[i, :t + 1].min())
+        log("  beam item %d: least reference top-K gap up to step %d: "
+            "%.3g (limit 1e-4)" % (i, t, least))
+        return least < 1e-4
+
+    return {"greedy": ids.cpu().numpy(), "logits": logits,
+            "beam": beam.cpu().numpy(), "margins": margins,
+            "tie_greedy": tie_greedy, "tie_beam": tie_beam}
+
+
 def caption_card_vs_cpu(params_cpu, results):
     """Greedy and beam-4 decodes of 2 items in float32 on the card and on
     the CPU from the same parameters and frames, each through
@@ -1090,25 +1333,7 @@ def caption_card_vs_cpu(params_cpu, results):
                                 device=device)
         feed = {"frames_main_input": pre(frames.to(device),
                                          prm.to(device))}
-        args = model.decoder_inputs(params, feed)
-        ids, logits = decode_mod.greedy_decode(
-            **args, return_type=defs.return_type.standard)
-        margins = []
-        top_k = decode_mod._top_k
-
-        def recording(x, k):
-            vals = torch.sort(x, dim=1, descending=True).values[:, :k + 1]
-            gaps = (vals[:, :-1] - vals[:, 1:]).min(dim=1).values
-            scale = vals.abs().max(dim=1).values.clamp(min=1.0)
-            margins.append((gaps / scale).cpu().numpy())
-            return top_k(x, k)
-
-        decode_mod._top_k = recording
-        try:
-            beam = decode_mod.beam_decode(eos_index=eos, beam_width=BEAM,
-                                          **args)
-        finally:
-            decode_mod._top_k = top_k
+        ref = decode_margins(model, params, feed, eos)
         applied = {}
         settings.captioning.beam_width = BEAM
         for search in ("max", "beam"):
@@ -1116,12 +1341,8 @@ def caption_card_vs_cpu(params_cpu, results):
             applied[search] = model.apply(params, feed,
                                           decode=True).cpu().numpy()
         settings.captioning.caption_search = "max"
-        out[device] = {"greedy": ids.cpu().numpy(),
-                       "logits": logits.cpu().numpy(),
-                       "beam": beam.cpu().numpy(),
-                       "margins": np.stack(margins, axis=1),
-                       "apply greedy": applied["max"],
-                       "apply beam": applied["beam"]}
+        out[device] = dict(ref, **{"apply greedy": applied["max"],
+                                   "apply beam": applied["beam"]})
     card, cpu = out["cuda"], out["cpu"]
     if not (np.array_equal(cpu["apply greedy"], cpu["greedy"]) and
             np.array_equal(cpu["apply beam"], cpu["beam"])):
@@ -1130,20 +1351,7 @@ def caption_card_vs_cpu(params_cpu, results):
                              "Model.decoder_inputs")
     c_logits, c_marg = cpu["logits"], cpu["margins"]
     top2 = np.sort(c_logits, axis=-1)[..., -2:]
-
-    def greedy_tie(i, t):
-        margin = top2[i, t, 1] - top2[i, t, 0]
-        limit = 1e-4 * max(1.0, float(np.abs(c_logits[i, t]).max()))
-        log("  greedy step %d of item %d: CPU top-2 margin %.3g (limit "
-            "%.3g)" % (t, i, margin, limit))
-        return margin < limit
-
-    def beam_tie(i, t):
-        least = float(c_marg[i, :t + 1].min())
-        log("  beam item %d: least CPU top-K gap up to step %d: %.3g "
-            "(limit 1e-4)" % (i, t, least))
-        return least < 1e-4
-
+    greedy_tie, beam_tie = cpu["tie_greedy"], cpu["tie_beam"]
     report = {"greedy_min_cpu_margin": float((top2[..., 1] -
                                               top2[..., 0]).min()),
               "beam_min_cpu_margin": float(c_marg.min())}
@@ -1317,11 +1525,11 @@ def phase_caption_train(settings, model, params_cpu, results):
         % (time.monotonic() - t0, metrics, launched))
     want = {"lrn": 2, "lrn_bwd": 2, "lstm_step": caption_sizes(model)[0],
             "conv1_dw": 0, "conv1_dw_shifted": 1}
-    variants = dict(lrn_mod.lrn_backward.variant_launches)
-    if launched != want or variants != {"staged": 0, "vector": 2}:
+    designs = variants()
+    if launched != want or designs != {"staged": 0, "vector": 2}:
         raise AssertionError("one caption training step launched %s (LRN "
                              "backward designs %s), expected %s, both "
-                             "vector" % (launched, variants, want))
+                             "vector" % (launched, designs, want))
     if not all(math.isfinite(v) for v in metrics.values()):
         raise AssertionError("non-finite metrics %s" % metrics)
     results["caption_train_launches"] = launched
@@ -1631,8 +1839,11 @@ def int8_card_vs_cpu(params_cpu, processor, results):
     for mode in INT8_MODES:
         kw = dict(quantize=mode, act_ranges=ranges
                   if mode == "int8_static" else None)
+        # eager on the card too: the record of int8 activations reads
+        # each layer's back to the host, which no graph can hold
         mods = {dev: serving.ServingModule(model32, params_cpu,
-                                           batch_items=1, device=dev, **kw)
+                                           batch_items=1, device=dev,
+                                           graphs=False, **kw)
                 for dev in ("cuda", "cpu")}
         card, cpu, free, flips = forced_card_vs_cpu(
             lambda dev: mods[dev](frames, prm), "float32 %s clip" % mode)
@@ -1991,7 +2202,7 @@ def fed_epoch(feeder, engine, model, kept, epoch):
     padding and mask, the launches and the metrics, and keeps the first
     epoch's batches 0 and 2 in ``kept``.  Returns the host-clock wall of
     each step (from the previous step's end, the wait for the batch
-    included) and each wait."""
+    included, the replay meter's own time left out) and each wait."""
     key = model.required_input[0][0]
     walls, waits = [], []
     torch.cuda.synchronize()
@@ -2011,18 +2222,19 @@ def fed_epoch(feeder, engine, model, kept, epoch):
             raise AssertionError("batch %d: %d label rows, %d valid, %d "
                                  "frames" % (index, rows, valid,
                                              feed[key].shape[0]))
+        metered = _METER.overhead_s
         metrics, launched = locked_step(engine, feed)
         now = time.monotonic()
-        walls.append(now - t_prev)
+        walls.append(now - t_prev - (_METER.overhead_s - metered))
         t_prev = now
-        variants = dict(lrn_mod.lrn_backward.variant_launches)
+        designs = variants()
         log("  epoch %d batch %d (%d clips, %d padded): %.1f ms (%.1f of "
             "them waiting for the batch), %s; launched %s"
             % (epoch + 1, index, valid, rows - valid, walls[-1] * 1e3,
                waits[-1] * 1e3, metrics, launched))
-        if launched != FED_WANT or variants != {"staged": 0, "vector": 2}:
+        if launched != FED_WANT or designs != {"staged": 0, "vector": 2}:
             raise AssertionError("fed step launched %s (%s), expected %s"
-                                 % (launched, variants, FED_WANT))
+                                 % (launched, designs, FED_WANT))
         if not all(math.isfinite(v) for v in metrics.values()):
             raise AssertionError("non-finite metrics %s" % metrics)
     if len(walls) != len(FED_PLAN):
@@ -2287,8 +2499,8 @@ class _PerCall:
     """Wraps ``owner.name`` for a ``with`` block: each call's launch
     counts (the counters' rise over the call; nothing is reset, so the
     totals over a whole run stay intact), its host wall (ending in a
-    sync), and the arguments (``self`` first) and output of the last
-    call."""
+    sync, the replay meter's own time left out), and the arguments
+    (``self`` first) and output of the last call."""
 
     def __init__(self, owner, name, kernels):
         self.owner, self.name, self.kernels = owner, name, kernels
@@ -2300,10 +2512,11 @@ class _PerCall:
 
         def wrapped(*args, **kwargs):
             before = counts(outer.kernels)
+            metered = _METER.overhead_s
             t0 = time.monotonic()
             out = saved(*args, **kwargs)
             torch.cuda.synchronize()
-            wall = time.monotonic() - t0
+            wall = time.monotonic() - t0 - (_METER.overhead_s - metered)
             after = counts(outer.kernels)
             outer.calls.append({"wall_s": wall, "launched": {
                 k: after[k] - before[k] for k in outer.kernels}})
@@ -3042,6 +3255,620 @@ def phase_media(results, folder, train_path):
 
 
 # ---------------------------------------------------------------- main
+# ------------------------------------------------------------- phase 11
+GRAPH_CLIPS = 8         # clips of the float32 graphed-vs-eager steps
+DROPOUT_CLIPS = 32      # clips of the float32 steps whose masks are read
+GRAPH_STEPS = 3         # steps compared, and the compared scan's length
+SCAN_STEPS = 6          # steps of the timed compile_scan_steps program
+GRAPH_BUCKETS = [1, 8, 32]
+GRAPH_WATCH = ["clf/output_fc/w"]
+def replay_counts(what, eager_fn, graphed_fn, want, program):
+    """The kernels that one replay of ``program`` (``graphed_fn``) runs,
+    counted from the profiler's kernel records by symbol (``_Meter``,
+    which also holds them to what the capture recorded), against
+    ``want``; the replay launches nothing from Python, and an eager call
+    of the same program (``eager_fn``) launches ``want`` by its
+    wrappers' counts."""
+    full = dict.fromkeys(KERNEL_SYMBOLS, 0)
+    full.update(want)
+    with _PlainLockedOut():
+        reset_counts()
+        replays = program.replays
+        graphed_fn()
+        torch.cuda.synchronize()
+        replay = dict(_METER.kernels)
+        python = {k: _WRAPPERS[k].launches for k in want}
+        metered = (_METER.replays, program.replays - replays)
+        reset_counts()
+        eager_fn()
+        torch.cuda.synchronize()
+        eager = counts(tuple(want))
+    log("  %s: a replay ran %s (profiler); an eager call launched %s "
+        "(wrappers)" % (what, replay, eager))
+    if replay != full or eager != want or metered != (1, 1) or \
+            any(python.values()):
+        raise AssertionError("%s: replay %s, eager %s, launched from "
+                             "Python in the replay %s, replays %s, "
+                             "expected %s" % (what, replay, eager, python,
+                                              metered, want))
+    return replay
+
+
+def train_program(engine, kind):
+    """A Train's captured program of ``kind`` (("step",) or ("scan",
+    n)) and the static feed buffers it reads."""
+    cache = engine.graph_cache
+    for (key, sig), (program, _) in cache.programs().items():
+        if key == kind:
+            return program, cache.static_inputs(sig)
+    raise AssertionError("no %s program was captured" % (kind,))
+
+
+def _within(share, want, n, what):
+    """A share of n draws within 5 sigma of ``want``."""
+    sigma = math.sqrt(want * (1 - want) / n)
+    if not abs(share - want) <= 5 * sigma:
+        raise AssertionError("%s: %.4f of %d, expected %.2f +- 5 x %.4f"
+                             % (what, share, n, want, sigma))
+
+
+def dropout_on_card(results):
+    """The card's dropout held to its definition (the graphed-vs-eager
+    checks hold the card to itself): two eager float32 steps of
+    DROPOUT_CLIPS clips on one feed with dropout 0.5 and accum_steps 2,
+    each mask read where the model calls ``layers.dropout``.  Every kept
+    unit is exactly x / 0.5 and every other one 0; each mask keeps a
+    share within 5 sigma of 0.5; the two micro-batches' masks, and the
+    masks of the two steps, agree on a share within 5 sigma of 0.5 (masks
+    drawn alike would agree everywhere); the engine's generators (one per
+    micro-batch and pipeline) start from distinct seeds."""
+    settings, model = training_flagship(DROPOUT_CLIPS, "float32")
+    settings.train.dropout_keep_prob = 0.5
+    settings.train.accum_steps = 2
+    engine = Train(settings, settings.feeder, model, seed=0, device="cuda",
+                   graphs=False)
+    processor = settings.feeder.datasets[0].processor
+    feed = training_feed(processor, DROPOUT_CLIPS, 80, "cuda")
+    calls = []
+    plain = pipeline_mod.dropout
+
+    def recording(generator, x, keep_prob):
+        y = plain(generator, x, keep_prob)
+        calls.append((x.detach().clone(), y.detach().clone(), keep_prob))
+        return y
+
+    pipeline_mod.dropout = recording
+    try:
+        for _ in range(2):
+            engine.run_step(dict(feed))
+    finally:
+        pipeline_mod.dropout = plain
+    torch.cuda.synchronize()
+    if len(calls) != 4 or any(kp != 0.5 for *_, kp in calls):
+        raise AssertionError("%d dropout calls (keep %s), expected 2 "
+                             "micro-batches x 2 steps at 0.5"
+                             % (len(calls), [kp for *_, kp in calls]))
+    masks = []
+    for i, (x, y, kp) in enumerate(calls):
+        live = x != 0
+        kept = y != 0
+        if not torch.equal(y[kept], (x / kp)[kept]) or \
+                bool((y[~kept] != 0).any()):
+            raise AssertionError("dropout call %d: a kept unit is not x / "
+                                 "%.1f" % (i, kp))
+        n = int(live.sum())
+        _within(float((kept & live).sum()) / n, kp, n,
+                "dropout call %d, kept share" % i)
+        masks.append((kept, live))
+
+    def agree(a, b, what):
+        both = a[1] & b[1]
+        n = int(both.sum())
+        share = float(((a[0] == b[0]) & both).sum()) / n
+        _within(share, 0.5, n, what)
+        return share
+
+    row = {"units_per_call": int(calls[0][0].numel()),
+           "kept_share": [float(m[0].float().mean()) for m in masks],
+           "micro_batches_agree": agree(masks[0], masks[1],
+                                        "micro-batch masks agree"),
+           "steps_agree": agree(masks[0], masks[2], "step masks agree")}
+    seeds = [g.initial_seed() for gens in engine._dropout_gens
+             for g in gens]
+    if len(set(seeds)) != len(seeds):
+        raise AssertionError("dropout generators share seeds: %s" % seeds)
+    log("  dropout 0.5 on the card, 2 steps x 2 micro-batches of %d units: "
+        "kept %s, kept units exactly x / 0.5; micro-batch masks agree on "
+        "%.4f, step masks on %.4f (independent: 0.5); %d generators, "
+        "distinct seeds" % (row["units_per_call"],
+                            ["%.4f" % v for v in row["kept_share"]],
+                            row["micro_batches_agree"], row["steps_agree"],
+                            len(seeds)))
+    results["graphs_dropout_on_card"] = row
+    del engine
+    torch.cuda.empty_cache()
+
+
+def graph_engines(opts):
+    """A float32 eager engine and a graphed one at GRAPH_CLIPS clips,
+    dropout 0.5, from one seed; the graphed one has run its warmup steps
+    and one replay and is then restored to the eager one's state (a
+    restore after the capture)."""
+    engines = []
+    for graphs in (False, True):
+        settings, model = training_flagship(GRAPH_CLIPS, "float32",
+                                            **opts.get("flagship", {}))
+        settings.train.dropout_keep_prob = 0.5
+        for k, v in opts.get("train", {}).items():
+            setattr(settings.train, k, v)
+        settings.watch_tensors = opts.get("watch")
+        engines.append(Train(settings, settings.feeder, model, seed=0,
+                             device="cuda", graphs=graphs))
+    eager, graphed = engines
+    processor = settings.feeder.datasets[0].processor
+    for s in range(WARMUP_STEPS + 1):
+        graphed.run_step(training_feed(processor, GRAPH_CLIPS, 40 + s,
+                                       "cuda"))
+    graphed.load_state_dict(eager.state_dict())
+    return eager, graphed, processor
+
+
+def states_agree(what, eager, graphed, start):
+    """Every parameter, moment, count and EMA tensor of the graphed
+    engine within 1e-3 x its largest eager update + 1e-7 x its max|value|
+    of the eager one's; returns whether all are bitwise equal and the
+    worst error as a share of its update."""
+    se, sg = eager.state_dict(), graphed.state_dict()
+    bitwise, worst = True, 0.0
+    for part in ("params", "opt_state", "ema_params"):
+        for k, v in se.get(part, {}).items():
+            g = sg[part][k]
+            bitwise = bitwise and torch.equal(v, g)
+            if not v.is_floating_point():
+                if not torch.equal(v, g):
+                    raise AssertionError("%s: %s %s differs" % (what, part,
+                                                                k))
+                continue
+            moved = float((v - start[part][k]).abs().max())
+            err = float((g - v).abs().max())
+            if err > 1e-3 * moved + 1e-7 * float(v.abs().max()):
+                raise AssertionError("%s: %s %s differs by %.3g (moved "
+                                     "%.3g)" % (what, part, k, err, moved))
+            worst = max(worst, err / moved if moved else 0.0)
+    return bitwise, worst
+
+
+def metrics_agree(what, me, mg):
+    for k, v in me.items():
+        g = np.asarray(mg[k])
+        v = np.asarray(v)
+        if k == "accuracy":
+            ok = np.array_equal(g, v)
+        else:
+            ok = np.allclose(g, v, rtol=1e-5,
+                             atol=1e-7 * max(1.0, float(np.abs(v).max())))
+        if not ok:
+            raise AssertionError("%s: %s %s (graphed) vs %s (eager)"
+                                 % (what, k, g, v))
+    return all(np.array_equal(np.asarray(mg[k]), np.asarray(v))
+               for k, v in me.items())
+
+
+def graphed_step_vs_eager(results):
+    """Two configurations (Adam with an EMA and a watched tensor; SGD
+    with accum_steps 2), GRAPH_STEPS steps each, then compile_scan_steps
+    against the eager loop, with the launch counts of each program."""
+    out = {}
+    want = {"lrn": 2, "lrn_bwd": 2, "lstm_step": FPC * LAYERS,
+            "conv1_dw": 0, "conv1_dw_shifted": 1}
+    configs = {"adam_ema_watch": {"flagship": {"optimizer": "adam",
+                                               "base_lr": 1e-4},
+                                  "train": {"ema_decay": 0.9},
+                                  "watch": GRAPH_WATCH},
+               "sgd_accum_steps_2": {"train": {"accum_steps": 2}}}
+    for name, opts in configs.items():
+        accum = opts.get("train", {}).get("accum_steps", 1)
+        eager, graphed, processor = graph_engines(opts)
+        start = eager.state_dict()
+        feeds = [training_feed(processor, GRAPH_CLIPS, 50 + s, "cuda")
+                 for s in range(GRAPH_STEPS)]
+        equal = True
+        for i, feed in enumerate(feeds):
+            equal &= metrics_agree("%s step %d" % (name, i),
+                                   eager.run_step(dict(feed)),
+                                   graphed.run_step(dict(feed)))
+        bitwise, worst = states_agree(name, eager, graphed, start)
+        program, _ = train_program(graphed, ("step",))
+        log("  float32 %d-clip step, %s, dropout 0.5: %d replays after a "
+            "restore equal the eager steps (metrics bitwise %s; state "
+            "bitwise %s, worst %.3g of an update)"
+            % (GRAPH_CLIPS, name, GRAPH_STEPS, equal, bitwise, worst))
+        row = {"metrics_bitwise": bool(equal), "state_bitwise": bitwise,
+               "worst_share_of_update": worst}
+        row["launches"] = replay_counts(
+            "training step (%s)" % name,
+            lambda: eager.run_step(dict(feeds[0])),
+            lambda: graphed.run_step(dict(feeds[0])),
+            {k: accum * v for k, v in want.items()}, program)
+        if name == "adam_ema_watch":
+            row["scan"] = scan_vs_eager(eager, graphed, feeds[0], want)
+        out[name] = row
+        del eager, graphed
+        torch.cuda.empty_cache()
+    results["graphs_equality"] = out
+
+
+def scan_vs_eager(eager, graphed, feed, want):
+    """compile_scan_steps(GRAPH_STEPS) as one graph against the eager
+    loop with the same dropout stream (seeded once per call, drawn on
+    step after step), from one state."""
+    graphed.compile_scan_steps(GRAPH_STEPS)(dict(feed))    # eager warmup
+    graphed.load_state_dict(eager.state_dict())
+    start = eager.state_dict()
+    me = eager.compile_scan_steps(GRAPH_STEPS)(dict(feed))
+    mg = graphed.compile_scan_steps(GRAPH_STEPS)(dict(feed))
+    equal = metrics_agree("compile_scan_steps", me, mg)
+    bitwise, worst = states_agree("compile_scan_steps", eager, graphed,
+                                  start)
+    log("  compile_scan_steps(%d) as one graph vs the eager loop: losses "
+        "%s; metrics bitwise %s, state bitwise %s (worst %.3g of an update)"
+        % (GRAPH_STEPS, list(mg["loss"]), equal, bitwise, worst))
+    program, _ = train_program(graphed, ("scan", GRAPH_STEPS))
+    scan = eager.compile_scan_steps(GRAPH_STEPS)
+    graphed_scan = graphed.compile_scan_steps(GRAPH_STEPS)
+    launched = replay_counts(
+        "compile_scan_steps(%d)" % GRAPH_STEPS, lambda: scan(dict(feed)),
+        lambda: graphed_scan(dict(feed)),
+        {k: GRAPH_STEPS * v for k, v in want.items()}, program)
+    return {"metrics_bitwise": bool(equal), "state_bitwise": bitwise,
+            "worst_share_of_update": worst, "launches": launched}
+
+
+def caption_params():
+    """Phase 6's captioner (bf16) and its float32 twin over one set of
+    random parameters on the card."""
+    settings, model = caption_flagship(batch_size=CAPTION_ITEMS)
+    s32, m32 = caption_flagship(batch_size=CAPTION_ITEMS,
+                                compute_dtype="float32")
+    params = model.init_params(seed=0, device="cuda")
+    return (settings, model), (s32, m32), params
+
+
+def graphed_decode_vs_eager(model32, params, results):
+    """Greedy and beam-4 tokens of CAPTION_ITEMS items in float32, graphed
+    (``val.ForwardGraphs``, a replay) against eager
+    (``val.serving_forward``), equal except from a step where the eager
+    decoder's choice lies within 1e-4 of a tie (phase 6's rule, on the
+    margins ``decode_margins`` records)."""
+    settings, model = model32
+    dset = model.caption_dataset
+    T = caption_sizes(model)[0]
+    pre = {"frames_main_input": make_preprocessor(
+        dset.processor, out_dtype=torch.float32, device="cuda")}
+    frames, prm = device_frames(dset.processor, CAPTION_ITEMS, 60, "cuda")
+    feed = {"frames_main_input": frames,
+            "frames_main_input/proc_params": prm}
+    fwd = val_mod.ForwardGraphs()
+    eos = dset.vocabulary.index("EOS")
+    ref = decode_margins(model, params, {"frames_main_input": pre[
+        "frames_main_input"](frames, prm)}, eos)
+    out = {}
+    settings.captioning.beam_width = BEAM
+    for search, key in (("max", "greedy"), ("beam", "beam")):
+        settings.captioning.caption_search = search
+
+        def graphed():
+            return fwd(model, pre, params, dict(feed), decode=True)
+
+        def eager():
+            return val_mod.serving_forward(model, pre, params, dict(feed),
+                                           decode=True)
+
+        graphed()                                   # warmup and capture
+        ids = graphed().cpu().numpy()
+        diff = first_difference(ids, eager().cpu().numpy())
+        tie = None
+        if diff is not None:
+            tie = ref["tie_" + key](*diff)
+            if not tie:
+                raise AssertionError("graphed %s tokens differ at a decided "
+                                     "step %s" % (key, diff))
+        program = list(fwd.cache.programs().values())[-1][0]
+        launched = replay_counts(
+            "%s decode of %d items" % (key, CAPTION_ITEMS), eager, graphed,
+            {"lrn": 2, "lstm_step": T}, program)
+        log("  float32 %s decode of %d items, graphed vs eager: tokens %s"
+            % (key, CAPTION_ITEMS, "equal" if diff is None else
+               "differ first at item %d step %d, within a tie" % diff))
+        out[key] = {"first_difference": diff, "launches": launched}
+    settings.captioning.caption_search = "max"
+    results["graphs_decode_equality"] = out
+
+
+def graphed_buckets_vs_eager(results):
+    """The classifier's serving forward at buckets 1, 8 and 32 in float32
+    and int8_static: graphed modules (``warmup()`` captures) against
+    eager ones, logits within 1e-5 x max(1, max|logit|)."""
+    settings, model = flagship(num_classes=CLASSES, fpc=FPC, image=IMAGE,
+                               lstm=(HIDDEN, LAYERS), raw_hw=RAW_HW,
+                               mean_scalars=SERVING_MEAN,
+                               imgproc=SERVING_IMGPROC,
+                               compute_dtype="float32")
+    processor = settings.feeder.datasets[0].processor
+    params = model.init_params(seed=0, device="cuda")
+    calib = device_frames(processor, INT8_CALIB_CLIPS * FPC, 70, "cuda")
+    frames, prm = device_frames(processor, max(GRAPH_BUCKETS) * FPC, 72,
+                                "cuda")
+    out = {}
+    for mode in (None, "int8_static"):
+        kw = {"calib_feed": calib} if mode else {}
+        graphed = serving.ServingModule(model, params,
+                                        batch_items=GRAPH_BUCKETS,
+                                        device="cuda", quantize=mode, **kw)
+        if mode:
+            kw = {"act_ranges": graphed.meta["act_ranges"]}
+        eager = serving.ServingModule(model, params,
+                                      batch_items=GRAPH_BUCKETS,
+                                      device="cuda", quantize=mode,
+                                      graphs=False, **kw)
+        graphed.warmup()
+        errs = {}
+        for clips in GRAPH_BUCKETS:
+            n = clips * FPC
+            got = graphed(frames[:n], prm[:n])
+            want = eager(frames[:n], prm[:n])
+            scale = max(1.0, float(np.abs(want).max()))
+            errs[clips] = float(np.abs(got - want).max()) / scale
+            if not errs[clips] <= 1e-5:
+                raise AssertionError("%s bucket %d: graphed logits differ "
+                                     "by %.3g of the scale"
+                                     % (mode or "float32", clips,
+                                        errs[clips]))
+        want = {"lrn": 2, "lstm_step": FPC * LAYERS}
+        if mode:
+            want["int8_mm"] = INT8_MM_PER_FORWARD
+        n = SERVE_CLIPS * FPC
+        program = graphed.graphs.cache.programs()
+        program = [p for p, *_ in program.values()][-1]
+        launched = replay_counts(
+            "%s forward of %d clips" % (mode or "float32", SERVE_CLIPS),
+            lambda: eager(frames[:n], prm[:n]),
+            lambda: graphed(frames[:n], prm[:n]), want, program)
+        log("  %s serving forward, buckets %s, graphed vs eager: worst "
+            "%s of the logit scale" % (mode or "float32", GRAPH_BUCKETS,
+                                        errs))
+        out[mode or "float32"] = {"rel_err": errs, "launches": launched}
+        del graphed, eager
+    results["graphs_bucket_equality"] = out
+    torch.cuda.empty_cache()
+
+
+def alternating(what, fns, reps, n_items, unit):
+    """Mean seconds per call of each of {"eager": fn, "graphed": fn}, in
+    turns eager, graphed, graphed, eager (host clock around calls that
+    end in a sync, after timed_s's two warm calls); logs the rates."""
+    secs = {k: [] for k in fns}
+    for k in ("eager", "graphed", "graphed", "eager"):
+        secs[k].append(timed_s(fns[k], reps))
+    sec = {k: float(np.mean(v)) for k, v in secs.items()}
+    log("  %s: eager %.3f ms (%.1f %s/s), graphed %.3f ms (%.1f %s/s)"
+        % (what, sec["eager"] * 1e3, n_items / sec["eager"], unit,
+           sec["graphed"] * 1e3, n_items / sec["graphed"], unit))
+    return sec
+
+
+def program_record(program, what, fn, sec, top=6):
+    """Capture time, pool memory and the idle share of one profiled
+    replay (1 - kernel time / the timed wall time of a call)."""
+    rows = {}
+    prof = profile_rows(what, fn, sec, rows, "p", top=top)
+    idle = 1.0 - rows["p_kernel_us_total"] / (sec * 1e6)
+    log("  %s: captured in %.2f s, pool +%.2f GB, card idle %.0f%% of a "
+        "replay" % (what, program.capture_s, program.pool_bytes / 1e9,
+                    100 * idle))
+    return {"capture_s": program.capture_s,
+            "pool_gb": program.pool_bytes / 1e9, "idle_share": idle,
+            "kernel_us": rows["p_kernel_us_total"]}, prof
+
+
+def time_training(results):
+    """The 128-clip bf16 step, eager first; then the graphed step and
+    compile_scan_steps(SCAN_STEPS) on the same engine's state.  The two
+    forms do not run in turns here: the eager step's 37 GB of
+    activations and the graph's pool would nearly fill the card."""
+    settings, model = training_flagship(TRAIN_CLIPS, "bfloat16")
+    processor = settings.feeder.datasets[0].processor
+    feeds = [training_feed(processor, TRAIN_CLIPS, s, "cuda")
+             for s in (1, 2)]
+    engine = Train(settings, settings.feeder, model, seed=0, device="cuda",
+                   graphs=False)
+    torch.cuda.reset_peak_memory_stats()
+    step = [0]
+
+    def run():
+        engine.run_step(dict(feeds[step[0] % 2]))
+        step[0] += 1
+
+    eager_s = timed_s(run, 4)
+    torch.cuda.synchronize()
+    del run
+    engine.graphs = True            # the same state, now captured
+    torch.cuda.empty_cache()
+    for _ in range(WARMUP_STEPS + 1):
+        engine.run_step(dict(feeds[0]))
+
+    def run_graphed():
+        engine.run_step(dict(feeds[step[0] % 2]))
+        step[0] += 1
+
+    graphed_s = timed_s(run_graphed, 4)
+    log("  %d-clip bf16 training step: eager %.2f ms (%.1f clips/s), "
+        "graphed %.2f ms (%.1f clips/s)"
+        % (TRAIN_CLIPS, eager_s * 1e3, TRAIN_CLIPS / eager_s,
+           graphed_s * 1e3, TRAIN_CLIPS / graphed_s))
+    program, static = train_program(engine, ("step",))
+    rec, _ = program_record(program, "the graphed %d-clip step"
+                            % TRAIN_CLIPS, run_graphed, graphed_s)
+    row = dict(rec, eager_ms=eager_s * 1e3, graphed_ms=graphed_s * 1e3,
+               eager_clips_per_s=TRAIN_CLIPS / eager_s,
+               graphed_clips_per_s=TRAIN_CLIPS / graphed_s,
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    nbytes = sum(v.numel() * v.element_size() for v in static.values())
+    row["feed_copy_ms"] = _events_ms(
+        lambda: [static[k].copy_(v) for k, v in feeds[1].items()], 10)
+    row["feed_copy_gb"] = nbytes / 1e9
+    log("  copy of a %.3f GB feed into the captured buffers: %.3f ms "
+        "(%.0f GB/s)" % (nbytes / 1e9, row["feed_copy_ms"],
+                         nbytes / 1e6 / row["feed_copy_ms"]))
+    many = engine.compile_scan_steps(SCAN_STEPS)
+    many(dict(feeds[0]))                            # eager warmup
+    many(dict(feeds[0]))                            # capture and replay
+    scan_s = timed_s(lambda: many(dict(feeds[0])), 2)
+    scan, _ = train_program(engine, ("scan", SCAN_STEPS))
+    rec, _ = program_record(scan, "compile_scan_steps(%d)" % SCAN_STEPS,
+                            lambda: many(dict(feeds[0])), scan_s)
+    row["scan"] = dict(rec, steps=SCAN_STEPS,
+                       ms_per_step=scan_s * 1e3 / SCAN_STEPS)
+    log("  compile_scan_steps(%d) at %d clips: %.2f ms a step (%.1f "
+        "clips/s)" % (SCAN_STEPS, TRAIN_CLIPS, scan_s * 1e3 / SCAN_STEPS,
+                      TRAIN_CLIPS * SCAN_STEPS / scan_s))
+    results["graphs_train_step"] = row
+    del engine, many
+    torch.cuda.empty_cache()
+
+
+def time_captioning(model_bf16, params, results):
+    """Greedy decodes at 1, 8, 32 and 64 items and beam-4 at 64, and the
+    64-caption training step: eager and graphed in turns."""
+    settings, model = model_bf16
+    dset = model.caption_dataset
+    pre = {"frames_main_input": make_preprocessor(
+        dset.processor, out_dtype=model.compute_dtype, device="cuda")}
+    frames, prm = device_frames(dset.processor, CAPTION_ITEMS, 61, "cuda")
+    fwd = val_mod.ForwardGraphs()
+    out = {}
+    settings.captioning.beam_width = BEAM
+    for search, sizes in (("max", (1, 8, 32, CAPTION_ITEMS)),
+                          ("beam", (CAPTION_ITEMS,))):
+        settings.captioning.caption_search = search
+        for n in sizes:
+            feed = {"frames_main_input": frames[:n],
+                    "frames_main_input/proc_params": prm[:n]}
+            fns = {"eager": lambda: val_mod.serving_forward(
+                       model, pre, params, dict(feed), decode=True),
+                   "graphed": lambda: fwd(model, pre, params, dict(feed),
+                                          decode=True)}
+            what = "%s decode of %d items" % (
+                "greedy" if search == "max" else "beam-%d" % BEAM, n)
+            sec = alternating(what, fns, 6, n, "captions")
+            program = list(fwd.cache.programs().values())[-1][0]
+            rec, prof = program_record(program, "graphed " + what,
+                                       fns["graphed"], sec["graphed"],
+                                       top=4)
+            row = dict(rec, eager_captions_per_s=n / sec["eager"],
+                       graphed_captions_per_s=n / sec["graphed"])
+            lstm = [ev for ev in prof.key_averages()
+                    if re.search(KERNEL_SYMBOLS["lstm_step"], ev.key)]
+            if lstm:
+                row["lstm_step_us_per_launch"] = \
+                    lstm[0].self_device_time_total / lstm[0].count
+                log("  lstm_step inside the graphed %s: %.2f us a launch "
+                    "(%d launches)" % (what, row["lstm_step_us_per_launch"],
+                                       lstm[0].count))
+            out["%s_%d" % ("greedy" if search == "max" else "beam", n)] = \
+                row
+    settings.captioning.caption_search = "max"
+    results["graphs_decode"] = out
+
+    engines = {}
+    for graphs in (False, True):
+        engines[graphs] = Train(settings, settings.feeder, model,
+                                params=params, device="cuda",
+                                graphs=graphs)
+    feed = caption_train_feed(settings, model, 0, "cuda")
+    fns = {"eager": lambda: engines[False].run_step(dict(feed)),
+           "graphed": lambda: engines[True].run_step(dict(feed))}
+    for _ in range(WARMUP_STEPS + 1):
+        fns["graphed"]()
+    sec = alternating("%d-caption training step" % CAPTION_ITEMS, fns, 4,
+                      CAPTION_ITEMS, "captions")
+    program, _ = train_program(engines[True], ("step",))
+    rec, _ = program_record(program, "the graphed %d-caption step"
+                            % CAPTION_ITEMS, fns["graphed"],
+                            sec["graphed"])
+    results["graphs_caption_train"] = dict(
+        rec, eager_ms=sec["eager"] * 1e3, graphed_ms=sec["graphed"] * 1e3,
+        eager_captions_per_s=CAPTION_ITEMS / sec["eager"],
+        graphed_captions_per_s=CAPTION_ITEMS / sec["graphed"])
+    del engines, fns
+    torch.cuda.empty_cache()
+
+
+def time_serving(results):
+    """The bf16 serving forward at buckets 1, 8 and 32: a graphed module
+    and an eager one in turns."""
+    settings, model = flagship(num_classes=CLASSES, fpc=FPC, image=IMAGE,
+                               lstm=(HIDDEN, LAYERS), raw_hw=RAW_HW,
+                               mean_scalars=SERVING_MEAN,
+                               imgproc=SERVING_IMGPROC,
+                               compute_dtype="bfloat16")
+    processor = settings.feeder.datasets[0].processor
+    params = model.init_params(seed=0, device="cuda")
+    modules = {"graphed": serving.ServingModule(
+        model, params, batch_items=GRAPH_BUCKETS, device="cuda"),
+        "eager": serving.ServingModule(model, params,
+                                       batch_items=GRAPH_BUCKETS,
+                                       device="cuda", graphs=False)}
+    modules["graphed"].warmup()
+    frames, prm = device_frames(processor, max(GRAPH_BUCKETS) * FPC, 73,
+                                "cuda")
+    programs = [p for p, *_ in
+                modules["graphed"].graphs.cache.programs().values()]
+    out = {}
+    for clips, program in zip(GRAPH_BUCKETS, programs):
+        n = clips * FPC
+        fns = {k: (lambda m=m: m(frames[:n], prm[:n]))
+               for k, m in modules.items()}
+        sec = alternating("bf16 serving forward at bucket %d" % clips, fns,
+                          6, clips, "clips")
+        rec, _ = program_record(program, "the graphed bucket %d" % clips,
+                                fns["graphed"], sec["graphed"], top=4)
+        out[clips] = dict(rec, eager_ms=sec["eager"] * 1e3,
+                          graphed_ms=sec["graphed"] * 1e3,
+                          eager_clips_per_s=clips / sec["eager"],
+                          graphed_clips_per_s=clips / sec["graphed"])
+    results["graphs_serving"] = out
+    del modules
+    torch.cuda.empty_cache()
+
+
+def phase_graphs(results):
+    log("phase 11: CUDA graphs against the eager programs (float32, TF32 "
+        "off, cuDNN deterministic), then eager and graphed times (bf16)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # the eager float32 step is not reproducible by itself: cuDNN's
+    # default backward algorithms add with atomics, and this random net
+    # turns their last-bit differences into different relu decisions
+    # (two eager runs' gradient norms part by up to 13% at the third
+    # step); with deterministic algorithms eager, eager again and the
+    # replay agree bit for bit
+    torch.backends.cudnn.deterministic = True
+    try:
+        dropout_on_card(results)
+        graphed_step_vs_eager(results)
+        graphed_buckets_vs_eager(results)
+        model_bf16, model32, params = caption_params()
+        graphed_decode_vs_eager(model32, params, results)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    time_captioning(model_bf16, params, results)
+    del params
+    torch.cuda.empty_cache()
+    time_serving(results)
+    time_training(results)
+
+
 def kernel_entry(name, source, replaces, launches, cases, main_cases):
     """One kernel's line entry.  Times and bounds are for the launches of
     the main path's run (the sum over its launch sites); errors are the
@@ -3069,6 +3896,7 @@ def main(argv=None):
                          "this check needs an NVIDIA GPU\n")
         return 2
     t_start = time.monotonic()
+    install_meter()
     card = gpu_line()
     log("gpu: %s" % card)
     log("torch %s, CUDA %s, python %s" % (torch.__version__,
@@ -3118,6 +3946,11 @@ def main(argv=None):
         log("  phase 10 took %.1f s" % results["media_phase_s"])
     finally:
         shutil.rmtree(folder, ignore_errors=True)
+    torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    phase_graphs(results)
+    results["graphs_phase_s"] = time.monotonic() - t0
+    log("  phase 11 took %.1f s" % results["graphs_phase_s"])
 
     launches = dict(results["main_path_launches"],
                     lrn_bwd=results["train_launches"]["lrn_bwd"],
@@ -3135,6 +3968,12 @@ def main(argv=None):
             ("conv1_dw", "conv1_dw.cu", 263),
             ("conv1_dw_shifted", "conv1_dw.cu", 373))]}
     results["kernels"] = line["kernels"]
+    results["metered_replays"] = _METER.total_replays
+    results["meter_overhead_s"] = _METER.overhead_s
+    log("replays measured under the profiler: %d; the profiler's own host "
+        "time around them %.2f s (%.1f ms a replay)"
+        % (_METER.total_replays, _METER.overhead_s,
+           1e3 * _METER.overhead_s / max(_METER.total_replays, 1)))
     results["total_s"] = time.monotonic() - t_start
     if args.out:
         with open(args.out, "w") as f:

@@ -12,5 +12,8 @@ path from media to answer: offline packing (``data/serialize.py``,
 (``tools/process_annotations.py``, ``produce_vocab_embeddings.py``,
 ``caption_vocab_tools.py``, ``check_serialized_data.py``,
 ``compute_image_mean.py``), inference on raw media (``tools/infer.py``)
-and export from a checkpoint (``tools/export_serving.py``).
+and export from a checkpoint (``tools/export_serving.py``), and on the
+card every program (the training step, ``Train.compile_scan_steps``, the
+evaluation and serving forward, the caption decodes) as a CUDA graph
+replay (``graphs.py``).
 """

@@ -290,12 +290,15 @@ def fc_apply_int8(params, x):
 
 # ----------------------------------------------------------------- dropout
 def dropout(generator, x, keep_prob):
-    """TF-style dropout: kept units scaled by 1/keep_prob."""
+    """TF-style dropout: kept units scaled by 1/keep_prob.  The mask is
+    drawn on x's device from ``generator``, which must live there (on the
+    card a CUDA generator, drawn inside the step as JAX draws it)."""
     if keep_prob is None or keep_prob <= 0 or keep_prob >= 1:
         return x
     if generator is None:
         error("dropout requires a generator in training mode")
-    keep = torch.rand(x.shape, generator=generator).to(x.device) < keep_prob
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < \
+        keep_prob
     return torch.where(keep, x / keep_prob, torch.zeros_like(x))
 
 

@@ -255,15 +255,18 @@ def beam_decode(params, out_fc_params, visual, embedding_matrix, bos_index,
         error("Undefined rnn visual mode [%s]" % visual_mode)
 
     word = emb[bos_index].expand(B * K, emb_dim)
-    # only beam 0 is live at first (all beams are identical otherwise)
+    # only beam 0 is live at first (all beams are identical otherwise).
+    # Fills, not assignments of a Python number: an item assignment
+    # copies a host scalar to the card, which a CUDA graph capture
+    # refuses
     scores = torch.full((B, K), NEG, dtype=torch.float32, device=device)
-    scores[:, 0] = 0.0
+    scores[:, 0].fill_(0.0)
     scores = scores.reshape(-1)
     finished = torch.zeros((B * K,), dtype=torch.bool, device=device)
     tokens = torch.zeros((B * K, sequence_len), dtype=torch.int64,
                          device=device)
     eos_only = torch.full((V,), NEG, dtype=torch.float32, device=device)
-    eos_only[eos_index] = 0.0
+    eos_only[eos_index].fill_(0.0)
     item_base = torch.arange(B, device=device)[:, None] * K
     for t in range(sequence_len):
         x = word if vis_k is None else torch.cat([word, vis_k], dim=1)

@@ -315,9 +315,12 @@ class Model:
         a captioner's (B, T) int32 word indices (greedy, or beam search
         when ``settings.captioning`` asks for it).
         ``dropout_generator`` (a ``torch.Generator``)
-        seeds training dropout: pipeline i draws from a generator seeded
-        with ``fold_in(its seed, i)``, so two same-shaped dropout sites in
-        different pipelines never share a mask (JAX ``fold_in(rng, i)``).
+        seeds training dropout: pipeline i draws from a generator on the
+        same device seeded with ``fold_in(its seed, i)``, so two
+        same-shaped dropout sites in different pipelines never share a
+        mask (JAX ``fold_in(rng, i)``); a list gives pipeline i its own
+        generator ``[i]`` as it stands (``Train`` seeds them so, and keeps
+        them for the graphs that draw from them).
         ``conv1_dw`` picks the stem conv's weight-gradient kernel.
         ``quantize`` ("int8" / "int8_static") runs the frame encoders'
         w8a8 serving forward (forward only: refused in training), on raw
@@ -340,8 +343,10 @@ class Model:
         logits = None
         for i, spec in enumerate(self.specs):
             gen_i = None
-            if dropout_generator is not None:
-                gen_i = torch.Generator().manual_seed(
+            if isinstance(dropout_generator, (list, tuple)):
+                gen_i = dropout_generator[i]
+            elif dropout_generator is not None:
+                gen_i = torch.Generator(dropout_generator.device).manual_seed(
                     fold_in(dropout_generator.initial_seed(), i))
             logits = self._apply_pipeline(params[spec["name"]], spec, feed,
                                           outputs, train, gen_i, conv1_dw,

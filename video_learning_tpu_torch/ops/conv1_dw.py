@@ -9,7 +9,8 @@
 tensors a kernel does not take, they raise.  ``conv1_dw.launches`` and
 ``conv1_dw_shifted.launches`` count calls that launched the kernel (each
 call launches the contraction and the fixed-order reduction of its
-per-block partials).
+per-block partials; ``.captured`` counts the calls a CUDA graph capture
+records, ``graphs.py``).
 
 Both compute the gradient in the space-to-depth domain, where the conv
 has stride 1 and 3x3 taps over 48 = 4x4x3 channels: nine
@@ -23,6 +24,7 @@ x's dtype and accumulate in float32; the result is float32.
 import torch
 import torch.nn.functional as F
 
+from video_learning_tpu_torch import graphs
 from video_learning_tpu_torch.ops import _build
 from video_learning_tpu_torch.utils import error
 
@@ -165,11 +167,14 @@ def conv1_dw(x, gout, block_images=None):
     if x.device.type == "cpu" and gout.device.type == "cpu":
         return conv1_dw_reference(x, gout)
     dw = _launch("conv1_dw", x, gout, block_images, by_rows=False)
-    conv1_dw.launches += 1
+    if torch.cuda.is_current_stream_capturing():
+        conv1_dw.captured += 1         # runs at the graph's replays
+    else:
+        conv1_dw.launches += 1
     return dw
 
 
-conv1_dw.launches = 0
+graphs.register_wrapper(conv1_dw)
 
 
 def conv1_dw_shifted(x, gout, block_rows=None):
@@ -181,8 +186,11 @@ def conv1_dw_shifted(x, gout, block_rows=None):
     if x.device.type == "cpu" and gout.device.type == "cpu":
         return conv1_dw_shifted_reference(x, gout)
     dw = _launch("conv1_dw_shifted", x, gout, block_rows, by_rows=True)
-    conv1_dw_shifted.launches += 1
+    if torch.cuda.is_current_stream_capturing():
+        conv1_dw_shifted.captured += 1         # runs at the graph's replays
+    else:
+        conv1_dw_shifted.launches += 1
     return dw
 
 
-conv1_dw_shifted.launches = 0
+graphs.register_wrapper(conv1_dw_shifted)

@@ -9,7 +9,8 @@ int8 tensor-core GEMM; the int8 convolution is an im2col in int8 followed
 by this product (``models/layers.conv_apply_int8``).
 
 ``int8_mm`` launches ``torch._int_mm`` on CUDA tensors and counts the
-launches on ``int8_mm.launches``; on CPU tensors it computes the plain
+launches on ``int8_mm.launches`` (those a CUDA graph capture records on
+``int8_mm.captured``, ``graphs.py``); on CPU tensors it computes the plain
 ``int8_mm_reference``.  On a CUDA tensor it launches the int8 GEMM or
 raises: nothing falls back to a float product or to the CPU.
 
@@ -26,6 +27,7 @@ columns add nothing to the int32 sums.
 
 import torch
 
+from video_learning_tpu_torch import graphs
 from video_learning_tpu_torch.utils import error
 
 _MIN_ROWS = 32          # torch._int_mm on CUDA: A needs more than 16 rows
@@ -73,10 +75,13 @@ def int8_mm(a, b):
     mp, kp, np_ = _round_up(max(m, _MIN_ROWS), _ALIGN), \
         _round_up(k, _ALIGN), _round_up(n, _ALIGN)
     out = torch._int_mm(_padded(a, mp, kp), _padded(b, kp, np_))
-    int8_mm.launches += 1
+    if torch.cuda.is_current_stream_capturing():
+        int8_mm.captured += 1         # runs at the graph's replays
+    else:
+        int8_mm.launches += 1
     if (mp, np_) != (m, n):
         out = out[:m, :n]
     return out
 
 
-int8_mm.launches = 0
+graphs.register_wrapper(int8_mm)

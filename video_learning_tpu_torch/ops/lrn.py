@@ -8,7 +8,9 @@ tensors, and the plain ``lrn_reference`` / ``lrn_backward_reference`` on
 CPU tensors; on any other device, or a tensor a kernel does not take,
 they raise.  ``lrn.launches`` and ``lrn_backward.launches`` count kernel
 launches; ``lrn_backward.variant_launches`` counts them by the design
-``csrc/lrn_bwd.cu`` chose for the shape (``VARIANTS``).
+``csrc/lrn_bwd.cu`` chose for the shape (``VARIANTS``).  A launch that
+a CUDA graph capture records counts in ``.captured`` instead
+(``graphs.py``).
 
 A kernel's output has no ``grad_fn``, so a differentiable caller goes
 through ``LRNFunction``, whose forward is ``lrn`` and whose backward is
@@ -21,6 +23,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
+from video_learning_tpu_torch import graphs
 from video_learning_tpu_torch.ops import _build
 from video_learning_tpu_torch.utils import error
 
@@ -106,11 +109,14 @@ def lrn(x, depth_radius=2, bias=1.0, alpha=2e-5, beta=0.75):
         _DTYPES[x.dtype], int(depth_radius), float(bias), float(alpha),
         float(beta), torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(rc, "lrn")
-    lrn.launches += 1
+    if torch.cuda.is_current_stream_capturing():
+        lrn.captured += 1         # runs at the graph's replays
+    else:
+        lrn.launches += 1
     return y
 
 
-lrn.launches = 0
+graphs.register_wrapper(lrn)
 
 
 def lrn_backward(x, g, depth_radius=2, bias=1.0, alpha=2e-5, beta=0.75):
@@ -138,12 +144,15 @@ def lrn_backward(x, g, depth_radius=2, bias=1.0, alpha=2e-5, beta=0.75):
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(rc, "lrn_backward")
     if variant.value >= 0:          # -1: nothing to compute, no launch
-        lrn_backward.launches += 1
-        lrn_backward.variant_launches[VARIANTS[variant.value]] += 1
+        if torch.cuda.is_current_stream_capturing():
+            lrn_backward.captured += 1      # runs at the graph's replays
+        else:
+            lrn_backward.launches += 1
+            lrn_backward.variant_launches[VARIANTS[variant.value]] += 1
     return dx
 
 
-lrn_backward.launches = 0
+graphs.register_wrapper(lrn_backward)
 lrn_backward.variant_launches = dict.fromkeys(VARIANTS, 0)
 
 

@@ -5,7 +5,8 @@ version.
 ``video_learning_tpu/ops/pallas_kernels.lstm_step``) on CUDA tensors and
 the plain ``lstm_step_reference`` on CPU tensors; on any other device,
 or tensors the kernel does not take, it raises.  ``lstm_step.launches``
-counts kernel launches.
+counts kernel launches (``.captured`` those a CUDA graph capture
+records, ``graphs.py``).
 
 The kernel's outputs have no ``grad_fn``, so a differentiable caller goes
 through ``LSTMStepFunction``; ``lstm_step`` raises rather than hand back
@@ -15,6 +16,7 @@ mode is on.
 
 import torch
 
+from video_learning_tpu_torch import graphs
 from video_learning_tpu_torch.ops import _build
 from video_learning_tpu_torch.utils import error
 
@@ -59,11 +61,14 @@ def lstm_step(xproj, h, c, wh, b):
         b.data_ptr(), new_h.data_ptr(), new_c.data_ptr(), batch, hidden,
         torch.cuda.current_stream(xproj.device).cuda_stream)
     _build.check(rc, "lstm_step")
-    lstm_step.launches += 1
+    if torch.cuda.is_current_stream_capturing():
+        lstm_step.captured += 1         # runs at the graph's replays
+    else:
+        lstm_step.launches += 1
     return new_h, new_c
 
 
-lstm_step.launches = 0
+graphs.register_wrapper(lstm_step)
 
 
 class LSTMStepFunction(torch.autograd.Function):

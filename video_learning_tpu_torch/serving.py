@@ -6,7 +6,12 @@ is the export side).  A ``ServingModule`` runs exactly the validation
 forward, ``val.serving_forward``: uint8 frames and host-drawn (crop_y,
 crop_x, mirror) triples go to the device, are preprocessed there
 (``ops/preprocess.py``) and run through ``Model.apply(train=False)``
-under ``torch.inference_mode()``.
+under ``torch.inference_mode()``.  On the card every bucket runs as a
+CUDA graph replay (``val.ForwardGraphs``): ``warmup()`` captures each
+bucket's program, as the JAX export compiles one program per bucket, and
+a bucket that ``warmup()`` has not met is captured at its first call.
+``graphs=False`` keeps the forward eager; the ``int8_static``
+calibration forward is always eager.
 
 Calls take the positional arrays ``meta["inputs"]`` describes, with the
 JAX artifact's names (``frames_main_input`` and
@@ -68,7 +73,7 @@ from video_learning_tpu_torch.models.pipeline import Model
 from video_learning_tpu_torch.ops.preprocess import (make_preprocessor,
                                                      supports_device_path)
 from video_learning_tpu_torch.utils import error, resolve_device
-from video_learning_tpu_torch.val import serving_forward
+from video_learning_tpu_torch.val import ForwardGraphs, serving_forward
 
 FORMAT = "vlt-torch-1"
 _META_NAME = "meta.json"
@@ -180,12 +185,18 @@ class ServingModule:
     activation ranges from ``act_ranges`` ({pipeline: {layer: amax}}, as
     ``meta["act_ranges"]`` holds them) or calibrates them on
     ``calib_feed``.  ``ema`` (whether ``params`` are EMA weights) and
-    ``run_id`` (the run they come from) are recorded in the meta."""
+    ``run_id`` (the run they come from) are recorded in the meta.
+    ``graphs`` (default: on for a CUDA device) runs every bucket as a
+    CUDA graph replay."""
 
     def __init__(self, model, params, batch_items=8, device="cuda",
                  quantize=None, calib_feed=None, act_ranges=None,
-                 ema=False, run_id=None):
+                 ema=False, run_id=None, graphs=None):
         self.device = resolve_device(device)
+        use = self.device.type == "cuda" if graphs is None else bool(graphs)
+        if use and self.device.type != "cuda":
+            error("ServingModule: graphs=True needs a CUDA device")
+        self.graphs = ForwardGraphs() if use else None
         self.model = model
         self.params = _to_device(params, self.device)
         sizes = batch_items if isinstance(batch_items, (list, tuple)) \
@@ -295,10 +306,14 @@ class ServingModule:
 
     def _forward(self, feed, params, **kw):
         """Device preprocessing and the model on a feed of device
-        tensors; a captioner decodes."""
-        return serving_forward(
-            self.model, self._pre, params, feed,
-            decode=self.model.caption_dataset is not None, **kw)
+        tensors; a captioner decodes.  A graph replay when graphs are on,
+        but for the calibration forward (``calib_taps``)."""
+        decode = self.model.caption_dataset is not None
+        if self.graphs is None or "calib_taps" in kw:
+            return serving_forward(self.model, self._pre, params, feed,
+                                   decode=decode, **kw)
+        return self.graphs(self.model, self._pre, params, feed,
+                           decode=decode, **kw)
 
     def _calibrate(self, arrays):
         """{pipeline: {layer: amax}} of one float forward over the
@@ -361,8 +376,9 @@ class ServingModule:
         return self.captions_from_ids(self(*arrays))
 
     def warmup(self):
-        """Run zeros through every bucket, smallest first; returns the
-        largest bucket's output."""
+        """Run zeros through every bucket, smallest first, which captures
+        each bucket's graph when graphs are on; returns the largest
+        bucket's output."""
         for bucket in self.buckets:
             out = self(*[np.zeros([s["shape"][0] * bucket //
                                    self.batch_items] + s["shape"][1:],

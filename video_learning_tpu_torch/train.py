@@ -21,17 +21,29 @@ Counterpart of ``video_learning_tpu/train.py``:
 The parameters are float32 leaf tensors that require gradients; the step
 differentiates with ``torch.autograd.grad`` and then updates them in
 place (JAX builds new arrays; in place saves a copy of every parameter).
+The optimizer state lives on the device and is written in place too: a
+step count per tier indexing an lr table there, Adam's bias corrections
+computed from it in float32, the global-norm clip as optax's select, and
+a device step counter for the metrics' lr.  Nothing in the step reads a
+value back to the host, so on the card the step (and
+``compile_scan_steps``, N steps as one program) is captured as a CUDA
+graph and replayed (``graphs.py``), as the JAX package compiles its step
+once with ``jax.jit``; ``run_step`` copies a feed into the captured
+buffers, replays, and reads the metrics back in one copy.
 As in JAX, every feed is padded to the run's ``BatchGeometry`` (the epoch
 tail gets ``label_mask`` zeros) and moved to the device by
 ``prepare_device_feed``, which a ``FeedPrefetcher`` runs in its thread;
 ``run_step`` skips that work for a feed so prepared.  The run config's
 ``watch_tensors`` add the mean, std (over N), min and max of each
 watched parameter and its gradient to the metrics, computed in float32
-on the device.  Not ported: the mesh and sharding code and
-``compile_scan_steps``.
-Dropout draws from torch generators seeded with
-``fold_in(seed + 1, global_step)``: the same structure of streams as the
-JAX ``fold_in``, not the same bits.
+on the device.  Not ported: the mesh and sharding code.
+Dropout draws on the parameters' device from one persistent generator
+per micro-batch and pipeline, re-seeded before every step from
+``fold_in(seed + 1, global_step)`` (then ``fold_in`` of the micro-batch
+and of the pipeline): the same structure of streams as the JAX
+``fold_in``, not the same bits.  A graph registers these generators and
+reads their seeds at each replay, so a replayed step draws the masks of
+the eager step at the same seed.
 """
 
 import math
@@ -41,6 +53,7 @@ import re
 import numpy as np
 import torch
 
+from video_learning_tpu_torch import graphs as graphs_mod
 from video_learning_tpu_torch.batching import BatchGeometry
 from video_learning_tpu_torch.checkpoint import flatten_tree, unflatten_tree
 from video_learning_tpu_torch.defs import defs
@@ -51,6 +64,12 @@ from video_learning_tpu_torch.utils import (error, fold_in, info,
 
 # the key prepare_device_feed adds to a feed it has padded and moved
 ON_DEVICE = "__on_device__"
+
+# eager steps at a feed geometry, the last of them followed by the
+# capture of the step: the first call of every library and kernel (cuBLAS
+# handles and workspaces on the capture stream, a kernel's shared-memory
+# opt-in) happens outside the capture
+WARMUP_STEPS = 2
 
 # optax.adam / optax.adamw and optax.rmsprop defaults
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
@@ -149,25 +168,34 @@ def global_norm(tensors):
 class _Tier:
     """One base optimizer (``optax.sgd`` / ``adam`` / ``rmsprop`` /
     ``adamw``) over a subset of the parameters, with its own step count.
-    ``update`` returns the additive updates and advances the state."""
+    The state lives on the parameters' device: the count is a 0-d int64
+    tensor, the lr comes from a table there indexed by it, and ``update``
+    returns the additive updates and advances the moments and the count
+    in place (so a captured step keeps reading and writing the same
+    tensors)."""
 
     def __init__(self, kind, lr_array, mult, weight_decay):
         if kind not in (defs.optim.sgd, defs.optim.adam, defs.optim.rmsprop,
                         defs.optim.adamw):
             error("Undefined optimizer %s" % kind)
         self.kind = kind
-        self.lr_array = np.asarray(lr_array, np.float32)
-        self.mult = mult
+        table = np.asarray(lr_array, np.float32)
+        if mult is not None:
+            table = table * np.float32(mult)
+        self.lr_array = table.astype(np.float32)
         self.weight_decay = float(weight_decay)
+        self._table = None
 
     def lr(self, count):
-        lr = self.lr_array[min(max(count, 0), len(self.lr_array) - 1)]
-        if self.mult is not None:
-            lr = lr * np.float32(self.mult)
-        return float(np.float32(lr))
+        """The lr at the device step count ``count`` (the schedule's last
+        entry beyond its end), a 0-d float32 tensor on the state's
+        device."""
+        i = count.clamp(0, len(self.lr_array) - 1).reshape(1)
+        return self._table.index_select(0, i).reshape(())
 
-    def init(self, params):
-        state = {"count": 0}
+    def init(self, params, device):
+        self._table = torch.as_tensor(self.lr_array, device=device)
+        state = {"count": torch.zeros((), dtype=torch.int64, device=device)}
         if self.kind in (defs.optim.adam, defs.optim.adamw):
             state["mu"] = {n: torch.zeros_like(p) for n, p in params.items()}
         if self.kind != defs.optim.sgd:
@@ -177,26 +205,28 @@ class _Tier:
     def update(self, grads, state, params):
         count = state["count"]
         step_size = -self.lr(count)
+        if self.kind in (defs.optim.adam, defs.optim.adamw):
+            # optax's bias corrections, in float32 from the count
+            c = (count + 1).to(torch.float32)
+            bc1 = 1 - torch.pow(torch.full((), ADAM_B1, device=c.device), c)
+            bc2 = 1 - torch.pow(torch.full((), ADAM_B2, device=c.device), c)
         out = {}
         for n, g in grads.items():
             if self.kind == defs.optim.sgd:
                 u = g
             elif self.kind == defs.optim.rmsprop:
-                nu = (1 - RMS_DECAY) * g.square() + RMS_DECAY * state["nu"][n]
-                state["nu"][n] = nu
+                nu = state["nu"][n]
+                nu.copy_((1 - RMS_DECAY) * g.square() + RMS_DECAY * nu)
                 u = torch.rsqrt(nu + RMS_EPS) * g
             else:
-                mu = (1 - ADAM_B1) * g + ADAM_B1 * state["mu"][n]
-                nu = (1 - ADAM_B2) * g.square() + ADAM_B2 * state["nu"][n]
-                state["mu"][n], state["nu"][n] = mu, nu
-                c = np.float32(count + 1)
-                bc1 = float(np.float32(1) - np.power(np.float32(ADAM_B1), c))
-                bc2 = float(np.float32(1) - np.power(np.float32(ADAM_B2), c))
+                mu, nu = state["mu"][n], state["nu"][n]
+                mu.copy_((1 - ADAM_B1) * g + ADAM_B1 * mu)
+                nu.copy_((1 - ADAM_B2) * g.square() + ADAM_B2 * nu)
                 u = (mu / bc1) / (torch.sqrt(nu / bc2) + ADAM_EPS)
                 if self.kind == defs.optim.adamw and params[n].dim() > 1:
                     u = u + self.weight_decay * params[n]
             out[n] = step_size * u
-        state["count"] = count + 1
+        count.add_(1)
         return out
 
 
@@ -231,17 +261,21 @@ class Optimizer:
         return out
 
     def init(self, params):
+        """The state of every tier, on the parameters' device."""
+        device = next(iter(params.values())).device
         parts = self._split(params)
-        return {tier: t.init(parts[tier]) for tier, t in self.tiers.items()}
+        return {tier: t.init(parts[tier], device)
+                for tier, t in self.tiers.items()}
 
     def update(self, grads, state, params):
         """Updates to add to the parameters; ``state`` advances in
-        place."""
+        place.  Nothing here reads a value back to the host: the clip is
+        optax's select (``torch.where``), not a branch."""
         if self.clip_norm is not None:
             g_norm = global_norm(grads.values())
-            if not bool(g_norm < self.clip_norm):
-                grads = {n: (g / g_norm) * self.clip_norm
-                         for n, g in grads.items()}
+            keep = g_norm < self.clip_norm
+            grads = {n: torch.where(keep, g, (g / g_norm) * self.clip_norm)
+                     for n, g in grads.items()}
         if self.clip_per_tensor is not None:
             clipped = {}
             for n, g in grads.items():
@@ -297,13 +331,27 @@ class Train:
     package with ``checkpoint.from_jax_flat``) instead of fresh ones from
     ``seed``; its names must be the model's.  ``device`` defaults to the
     GPU; pass ``device="cpu"`` to train on the CPU.  ``conv1_dw`` picks
-    the stem conv's weight-gradient kernel ("shifted" or "blocked")."""
+    the stem conv's weight-gradient kernel ("shifted" or "blocked").
+    ``graphs`` (default: on for a CUDA device) runs the step and
+    ``compile_scan_steps`` as CUDA graph replays after ``WARMUP_STEPS``
+    eager steps at each feed geometry; ``graphs=False`` keeps the eager
+    step.  The CPU has no graphs.
+
+    Every tensor of the state (parameters, moments, step counts, EMA,
+    the device step counter) is created once and then only written in
+    place, so a captured step keeps reading and writing the right memory:
+    ``load_state_dict`` copies into them, and nothing may rebind them."""
 
     def __init__(self, settings, feeder, model, seed=0, params=None,
-                 device="cuda", conv1_dw="shifted"):
+                 device="cuda", conv1_dw="shifted", graphs=None):
         if not settings.train:
             error("Train needs settings.train")
         self.device = resolve_device(device)
+        self.graphs = (self.device.type == "cuda" if graphs is None
+                       else bool(graphs))
+        if self.graphs and self.device.type != "cuda":
+            error("Train: graphs=True needs a CUDA device; the CPU runs "
+                  "the eager step (graphs=False)")
         self.settings = settings
         self.model = model
         self.feeder = feeder
@@ -345,10 +393,37 @@ class Train:
         self.ema = ({n: p.detach().clone() for n, p in self._flat.items()}
                     if self._ema_decay else None)
         self.seed = int(seed)
+        # the step counter on the device (the metrics' lr index), mirrored
+        # on the host
+        self._step_t = torch.zeros((), dtype=torch.int64, device=self.device)
+        self._lr_t = torch.as_tensor(self.lr_array, device=self.device)
         self.global_step = int(settings.global_step)
+        # one dropout generator per micro-batch and pipeline, on the
+        # device, re-seeded before every step
+        self._dropout_gens = [[torch.Generator(self.device)
+                               for _ in model.specs]
+                              for _ in range(self._accum)]
         self._preprocessors = self._build_preprocessors()
         self._watched = self._watch_list(
             getattr(settings, "watch_tensors", None) or [])
+        self.metric_names = ["loss", "lr", "grad_norm", "accuracy"] + [
+            "%s/%s/%s" % (kind, name, stat) for kind in ("param", "grad")
+            for name in self._watched
+            for stat in ("mean", "std", "min", "max")]
+        # the captured step and scan programs, by kind and feed signature;
+        # a replay's metrics vector is read at once, so it is not copied
+        self.graph_cache = graphs_mod.ProgramCache(
+            "Train", generators=[g for gens in self._dropout_gens
+                                 for g in gens], clone=False)
+
+    @property
+    def global_step(self):
+        return self._global_step
+
+    @global_step.setter
+    def global_step(self, value):
+        self._global_step = int(value)
+        self._step_t.fill_(self._global_step)
 
     def _watch_list(self, patterns):
         """The flat parameter names ``logging.watch_tensors`` matches (by
@@ -365,22 +440,18 @@ class Train:
         return sorted(watched)
 
     def _watch_stats(self, grads):
-        """{"param|grad/<name>/mean|std|min|max": float} of the watched
-        parameters (before this step's update) and their gradients: float32
-        on the device, one copy of the scalars to the host."""
-        if not self._watched:
-            return {}
-        rows, keys = [], []
-        for kind, source in (("param", self._flat), ("grad", grads)):
+        """The mean, std (over N), min and max of each watched parameter
+        (before this step's update), then of each watched gradient, in
+        ``metric_names`` order: one float32 vector on the device."""
+        rows = []
+        for source in (self._flat, grads):
             for name in self._watched:
                 x = source[name].detach().to(torch.float32)
                 rows.append(torch.stack([x.mean(), x.std(correction=0),
                                          x.min(), x.max()]))
-                keys.append("%s/%s" % (kind, name))
-        values = torch.stack(rows).cpu().numpy()
-        return {"%s/%s" % (key, stat): float(v)
-                for key, row in zip(keys, values)
-                for stat, v in zip(("mean", "std", "min", "max"), row)}
+        if not rows:
+            return torch.zeros((0,), dtype=torch.float32, device=self.device)
+        return torch.stack(rows).reshape(-1)
 
     def _check_accum_geometry(self):
         """accum_steps splits every feed array into equal micro-batches
@@ -429,16 +500,17 @@ class Train:
         return pre
 
     # -------------------------------------------------------------- step
-    def _forward(self, feed, seed):
-        """Preprocess, run the model in training mode; returns (logits,
-        labels, mask or None)."""
+    def _forward(self, feed, generators):
+        """Preprocess, run the model in training mode, pipeline i's
+        dropout drawing from ``generators[i]``; returns (logits, labels,
+        mask or None)."""
         feed = dict(feed)
         for key, pre in self._preprocessors.items():
             feed[key] = pre(feed[key], feed.pop(key + "/proc_params"))
         with torch.enable_grad():
             logits = self.model.apply(
                 self.params, feed, train=True,
-                dropout_generator=torch.Generator().manual_seed(seed),
+                dropout_generator=generators,
                 conv1_dw=self.conv1_dw)
         return logits, feed["labels"], feed.get("label_mask")
 
@@ -448,9 +520,9 @@ class Train:
         return {n: torch.zeros_like(p) if g is None else g
                 for (n, p), g in zip(self._flat.items(), grads)}
 
-    def _step_mean(self, feed, seed):
+    def _step_mean(self, feed):
         """accum_steps 1: the gradient of the masked mean loss."""
-        logits, labels, mask = self._forward(feed, seed)
+        logits, labels, mask = self._forward(feed, self._dropout_gens[0])
         with torch.enable_grad():
             loss = softmax_cross_entropy(logits, labels, mask)
         grads = self._grad(loss)
@@ -462,7 +534,7 @@ class Train:
             acc = (correct * m).sum() / m.sum().clamp(min=1.0)
         return grads, loss.detach(), acc
 
-    def _step_micro_sums(self, feed, seed):
+    def _step_micro_sums(self, feed):
         """accum_steps > 1: every feed array's leading dim is split into
         equal micro-batches; the gradients of the masked loss sums are
         added up and divided by the total mask count at the end, which
@@ -473,7 +545,8 @@ class Train:
             micro = {k: (v.reshape((accum, v.shape[0] // accum) +
                                    tuple(v.shape[1:]))[i]
                          if v.dim() >= 1 else v) for k, v in feed.items()}
-            logits, labels, mask = self._forward(micro, fold_in(seed, i))
+            logits, labels, mask = self._forward(micro,
+                                                 self._dropout_gens[i])
             mask = (torch.ones(labels.shape[0], device=labels.device)
                     if mask is None else mask.to(torch.float32))
             with torch.enable_grad():
@@ -540,25 +613,25 @@ class Train:
                 for k, v in feed.items()}
         return self._geometry.pad_feed(feed)[0]
 
-    def run_step(self, feed):
-        """One optimizer step on a feed dict ({input key: array or
-        tensor}, "labels" one-hot, optional "label_mask" and
-        "<key>/proc_params" for device preprocessing), or on a feed from
-        ``prepare_device_feed``; returns the metrics loss, lr, grad_norm
-        and accuracy as floats."""
-        feed = dict(feed)
-        if not feed.pop(ON_DEVICE, False):
-            feed = self.prepare_device_feed(feed)
-            feed.pop(ON_DEVICE)
-        if self.device.type == "cuda":
-            stream = torch.cuda.current_stream(self.device)
-            for v in feed.values():
-                v.record_stream(stream)
-        seed = fold_in(self.seed + 1, self.global_step)
+    def _seed_dropout(self, seed):
+        """Seed micro-batch m's pipeline i generator with
+        ``fold_in(fold_in(seed, m), i)`` (``fold_in(seed, i)`` for
+        accum_steps 1): the streams of the JAX ``fold_in(rng, i)``
+        structure, not its bits."""
+        for m, gens in enumerate(self._dropout_gens):
+            base = seed if self._accum == 1 else fold_in(seed, m)
+            for i, gen in enumerate(gens):
+                gen.manual_seed(fold_in(base, i))
+
+    def _step_body(self, feed):
+        """One optimizer step on a prepared feed, all on the device, with
+        no value read back to the host: returns the metrics (loss, lr,
+        grad_norm, accuracy, then the watched statistics) as one float32
+        vector and advances every state tensor in place."""
         if self._accum > 1:
-            grads, loss, acc = self._step_micro_sums(feed, seed)
+            grads, loss, acc = self._step_micro_sums(feed)
         else:
-            grads, loss, acc = self._step_mean(feed, seed)
+            grads, loss, acc = self._step_mean(feed)
         grad_norm = global_norm(grads.values())
         watched = self._watch_stats(grads)
         updates = self.tx.update(grads, self.opt_state, self._flat)
@@ -569,11 +642,83 @@ class Train:
                 d = self._ema_decay
                 for n, e in self.ema.items():
                     e.mul_(d).add_(self._flat[n] * (1.0 - d))
-        step = min(max(self.global_step, 0), len(self.lr_array) - 1)
-        self.global_step += 1
-        return dict({"loss": float(loss), "lr": float(self.lr_array[step]),
-                     "grad_norm": float(grad_norm),
-                     "accuracy": float(acc)}, **watched)
+            step = self._step_t.clamp(0, len(self.lr_array) - 1).reshape(1)
+            lr = self._lr_t.index_select(0, step).reshape(())
+            self._step_t.add_(1)
+        head = torch.stack([loss.to(torch.float32), lr,
+                            grad_norm.to(torch.float32),
+                            acc.to(torch.float32)])
+        return torch.cat([head, watched])
+
+    def _device_feed(self, feed):
+        feed = dict(feed)
+        if not feed.pop(ON_DEVICE, False):
+            feed = self.prepare_device_feed(feed)
+            feed.pop(ON_DEVICE)
+        return feed
+
+    def _run(self, kind, body, feed, warmups):
+        """``body(feed)``: eagerly with graphs off; else the first
+        ``warmups`` calls at this feed geometry eagerly on the capture
+        stream (real steps, not redone), the last of them followed by the
+        capture, and from then on a copy of the feed into the captured
+        buffers and a replay (``graphs.ProgramCache``)."""
+        if self.graphs:
+            return self.graph_cache.run(kind, body, feed, warmups=warmups)
+        if self.device.type == "cuda":
+            stream = torch.cuda.current_stream(self.device)
+            for v in feed.values():
+                v.record_stream(stream)
+        return body(feed)
+
+    def run_step(self, feed):
+        """One optimizer step on a feed dict ({input key: array or
+        tensor}, "labels" one-hot, optional "label_mask" and
+        "<key>/proc_params" for device preprocessing), or on a feed from
+        ``prepare_device_feed``; returns the metrics loss, lr, grad_norm
+        and accuracy (and the watched statistics) as floats, read back
+        in one copy."""
+        feed = self._device_feed(feed)
+        self._seed_dropout(fold_in(self.seed + 1, self.global_step))
+        out = self._run(("step",), self._step_body, feed, WARMUP_STEPS)
+        self._global_step += 1
+        values = out.cpu().numpy()
+        return {k: float(v) for k, v in zip(self.metric_names, values)}
+
+    def compile_scan_steps(self, num_steps):
+        """``num_steps`` optimizer steps on one feed as one program (JAX
+        ``Train.compile_scan_steps``): on the card with graphs on, one
+        CUDA graph (the first call at a feed geometry runs the steps
+        eagerly and then captures them, later calls replay); on the CPU
+        or with graphs off, an eager loop.  Returns ``many(feed)`` ->
+        {metric: (num_steps,) float32 array}; each call advances
+        ``global_step`` by ``num_steps``, and each step's lr metric is the
+        schedule's at its own step.
+
+        Dropout: JAX folds the step index into the call's key for each
+        step.  Here the generators are seeded once per call, as
+        ``run_step`` seeds them at the call's first step, and each later
+        step draws on from where the previous one stopped: inside one
+        graph nothing can re-seed them.  So the first step's masks are
+        those of ``run_step`` and the later ones are not."""
+        num_steps = int(num_steps)
+        if num_steps < 1:
+            error("compile_scan_steps needs num_steps >= 1, got %d"
+                  % num_steps)
+
+        def body(feed):
+            return torch.stack([self._step_body(feed)
+                                for _ in range(num_steps)])
+
+        def many(feed):
+            feed = self._device_feed(feed)
+            self._seed_dropout(fold_in(self.seed + 1, self.global_step))
+            out = self._run(("scan", num_steps), body, feed, 1)
+            self._global_step += num_steps
+            values = out.cpu().numpy()
+            return {k: values[:, j] for j, k in enumerate(self.metric_names)}
+
+        return many
 
     # ------------------------------------------------------------ state
     def eval_params(self):
@@ -597,7 +742,7 @@ class Train:
 
         opt = {}
         for tier, st in self.opt_state.items():
-            opt[tier + "/count"] = torch.tensor(st["count"])
+            opt[tier + "/count"] = snap(torch.as_tensor(st["count"]))
             for slot in ("mu", "nu"):
                 for n, t in st.get(slot, {}).items():
                     opt["%s/%s/%s" % (tier, slot, n)] = snap(t)
@@ -621,7 +766,7 @@ class Train:
                 p.copy_(state["params"][n])
             for tier, st in self.opt_state.items():
                 if tier + "/count" in opt:
-                    st["count"] = int(opt[tier + "/count"])
+                    st["count"].fill_(int(opt[tier + "/count"]))
                 for slot in ("mu", "nu"):
                     for n, t in st.get(slot, {}).items():
                         key = "%s/%s/%s" % (tier, slot, n)

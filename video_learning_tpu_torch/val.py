@@ -1,8 +1,8 @@
 """Validation engine: the evaluation forward, logits accumulation and
 fusion, chunk files, accuracies and caption scoring.
 
-Counterpart of ``video_learning_tpu/val.py``.  The forward is eager torch
-under ``torch.inference_mode()``: the val datasets' device preprocessors,
+Counterpart of ``video_learning_tpu/val.py``.  The forward runs under
+``torch.inference_mode()``: the val datasets' device preprocessors,
 then ``Model.apply(train=False)`` (or ``decode=True`` for a captioner),
 with ``val: quantize`` pre-quantizing the frame encoders once per
 parameter tree (``int8_static`` calibrated on the first batch).  What
@@ -21,7 +21,10 @@ and scored by ``metrics/coco_eval.py`` into ``coco.results.json.eval.json``.
 ``run_forward``, ``build_serving_fn`` (the serving computation that
 ``tools/export_serving`` takes its signature from) and
 ``serving.ServingModule``, so evaluation, inference and the exported
-artifact cannot drift apart.
+artifact cannot drift apart.  On the card it runs as CUDA graph replays
+(``ForwardGraphs``), the counterpart of the JAX package's
+``jax.jit(forward)`` and ``jax.jit(decode)``; ``graphs=False`` keeps it
+eager.
 
 Not ported: the mesh and ``_local_rows`` (multi-GPU, ROADMAP Queue 1,
 item 6).
@@ -34,6 +37,7 @@ import pickle
 import numpy as np
 import torch
 
+from video_learning_tpu_torch import graphs as graphs_mod
 from video_learning_tpu_torch.defs import defs
 from video_learning_tpu_torch.ops.preprocess import (make_preprocessor,
                                                      supports_device_path)
@@ -59,6 +63,34 @@ def serving_forward(model, preprocessors, params, feed, decode=False,
                            quantize=quantize, **kw)
 
 
+class ForwardGraphs:
+    """``serving_forward`` as CUDA graph replays: one program per (feed
+    shapes and dtypes, ``decode`` with the caption search options of
+    ``settings.captioning``, ``quantize``, the memory of the parameter
+    tree), captured at its first call (which runs eagerly and is the
+    capture's warmup), all in one memory pool.  The classifier
+    forward, the greedy and beam decodes and the int8 forwards all go
+    through it.  A graph reads the parameters where they were at capture:
+    they may change in place between calls (the live weights of a
+    training run), and a tree at other addresses (the EMA, a re-quantized
+    tree) gets a program of its own."""
+
+    def __init__(self):
+        self.cache = graphs_mod.ProgramCache("the serving forward")
+
+    def __call__(self, model, preprocessors, params, feed, decode=False,
+                 quantize=None):
+        def forward(inputs):
+            return serving_forward(model, preprocessors, params, inputs,
+                                   decode=decode, quantize=quantize)
+
+        cap = model.settings.captioning if decode else None
+        search = None if cap is None else (
+            cap.caption_search, cap.beam_width, cap.length_norm)
+        key = (decode, search, quantize, graphs_mod.storage_key(params))
+        return self.cache.run(key, forward, feed, keep=params)
+
+
 def _first_leaf(tree):
     while isinstance(tree, (dict, list)):
         tree = next(iter(tree.values())) if isinstance(tree, dict) \
@@ -69,9 +101,11 @@ def _first_leaf(tree):
 class Validation:
     """Evaluation of ``model`` (its forward on ``device``, the GPU by
     default), or with ``model=None`` the host-side accumulation and
-    scoring alone."""
+    scoring alone.  ``graphs`` (default: on for a CUDA device) runs the
+    forward as ``ForwardGraphs`` replays; ``graphs=False`` keeps it
+    eager."""
 
-    def __init__(self, settings, model=None, device="cuda"):
+    def __init__(self, settings, model=None, device="cuda", graphs=None):
         if not settings.val:
             return
         self.settings = settings
@@ -87,6 +121,11 @@ class Validation:
         self.run_id = settings.run_id
         self.timestamp = settings.timestamp
         self._preprocessors = {}
+        use = (self.device is not None and self.device.type == "cuda"
+               if graphs is None else bool(graphs))
+        if use and (self.device is None or self.device.type != "cuda"):
+            error("Validation: graphs=True needs a model on a CUDA device")
+        self._graphs = ForwardGraphs() if use else None
         self.release_params()
         if model is not None:
             self._build_forward()
@@ -186,10 +225,8 @@ class Validation:
             error("No visual inputs to export")
 
         def serve(*arrays):
-            return serving_forward(
-                self.model, self._preprocessors, params,
-                self._on_device(dict(zip(names, arrays))), decode=decode,
-                quantize=quantize)
+            return self._forward(params, self._on_device(
+                dict(zip(names, arrays))), decode, quantize)
 
         specs = [(tuple(sample_feed[n].shape),
                   str(sample_feed[n].dtype).replace("torch.", ""))
@@ -201,11 +238,16 @@ class Validation:
         decoded (items, T) int32 word indices with ``decode``."""
         quantize = getattr(self.settings.val, "quantize", None)
         params = self._maybe_quantize(params, feed, decode)
-        out = serving_forward(self.model, self._preprocessors, params,
-                              self._on_device(feed), decode=decode,
-                              quantize=quantize)
+        out = self._forward(params, self._on_device(feed), decode, quantize)
         out = out.to(torch.int32 if decode else torch.float32)
         return out.cpu().numpy()
+
+    def _forward(self, params, feed, decode, quantize):
+        if self._graphs is None:
+            return serving_forward(self.model, self._preprocessors, params,
+                                   feed, decode=decode, quantize=quantize)
+        return self._graphs(self.model, self._preprocessors, params, feed,
+                            decode=decode, quantize=quantize)
 
     # ------------------------------------------------- logits accumulation
     def process_validation_logits(self, tag, settings, logits, labels,
@@ -326,8 +368,11 @@ class Validation:
         self.validation_logits_save_counter = 0
 
     def release_params(self):
-        """Drop the cached quantized parameters (the inline eval calls
-        this after each pass: training moves on)."""
+        """Drop the cached quantized parameters and the forward's graphs
+        with them (the inline eval calls this after each pass: training
+        moves on)."""
+        if self._graphs is not None:
+            self._graphs = ForwardGraphs()
         self._q_src_params = None
         self._q_src_leaf0 = None
         self._q_params = None
