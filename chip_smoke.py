@@ -166,6 +166,45 @@ Phases (each raises on failure; nothing is caught and passed over):
    serving forward at buckets 1, 8 and 32, each with its capture time,
    pool memory and the card's idle share of one profiled replay, and
    the copy of a 128-clip feed into the captured buffers.
+12. the (data x model) mesh, last, in phase 8's folder before it is
+   removed (after phase 11: once other processes have used the card the
+   profiler loses a kernel record of each profiled replay, and phase 11
+   counts replays from those records): ranks started by
+   ``parallel.launch`` (or ``torch.distributed.run``) share the card over
+   gloo (NCCL refuses two ranks on one device), so this measures the
+   code, not multi-GPU scaling; the kernels are phase 1's.  Four ranks
+   on a (data=2, model=2) mesh: all_reduce SUM and MAX, all_gather and
+   broadcast of CUDA tensors, exact; at full width (240x320 uint8 frames
+   cropped to 227 on the card, 101 classes, 2x256 LSTM) one float32 step
+   (TF32 off, cuDNN deterministic, dropout off) of a 128-clip batch (64
+   a data rank) whose label_mask zeros all fall on data rank 1, once
+   with SGD and clip 10 and once with Adam, an EMA and accum_steps 2,
+   from the seed's parameters with fc6's and fc7's kernels scaled so
+   that the LSTM's gates do not saturate, each against one process on
+   the card running the global batch as the mesh's micro-batches: rank 0
+   gathers the state and holds every tensor by the train tests' rule
+   (SGD within 2% of its largest update; Adam within two updates, at
+   most 1% beyond 10%), reporting phase 11's rule (1e-3 of the update)
+   beside it, and the step's metrics within 1e-5 relative; each rank's
+   launches per step with the plain versions locked out (lrn 2, lrn_bwd
+   2, lstm_step 32, conv1_dw_shifted 1; twice that with accum_steps 2);
+   the float32 forward of 16 clips, each rank's rows within 1e-3 x
+   max(1, max|logit|) of the single-process rows, and the int8 and
+   int8_static forwards held so to a single-process run of the global
+   batch that takes the mesh's int8 activations (phase 7's rule); three
+   timed bf16 steps per rank (wall, the collectives' time, bytes and
+   GB/s).  Two ranks: phase 6's captioner in float32 on a (1, 2) mesh,
+   greedy and beam-4 tokens of 64 items equal to the single-process ones
+   (phase 6's tie rule); a ``--mesh data=2`` export of phase 9's
+   checkpoint through a float32 twin of its val config, loaded in the
+   2-rank group, its logits within 1e-3 x max(1, max|logit|) of the
+   single-process artifact's on the same 8 items.  And ``run_task`` as 2
+   ranks through ``torch.distributed.run`` on phase 8's packed set
+   (host_shards auto: 212 videos a rank): a train epoch with an inline
+   eval (equal loss streams in the ranks' logs, each checkpoint once
+   with its .snap, one metrics JSONL, eval_state.json), a val phase (the
+   accuracy files and one .total of 32 rows), and a resume from
+   ``latest`` whose steps continue the first run's.
 
 Phases 3-10 run the port's defaults, which on the card are graph
 replays: a program's first call at a shape runs eagerly and then
@@ -189,6 +228,7 @@ nonzero and prints no result.
 """
 
 import argparse
+import gc
 import glob
 import http.client
 import io
@@ -2128,9 +2168,10 @@ def pack_videos(folder, videos, seed):
     frame_bytes = RAW_HW[0] * RAW_HW[1] * 3
     # phase 9 adds its val split, one checkpoint of ~0.5 GB (and a probe
     # save) and the caption files in the same folder, phase 10 its media,
-    # their packs and its artifacts
+    # their packs and its artifacts, phase 12 its reference states,
+    # artifacts and run folder
     need = (videos + RUN_VAL_VIDEOS * RUN_VAL_CPV) * FPC * \
-        (frame_bytes + 64) + (3 << 29) + MEDIA_BYTES
+        (frame_bytes + 64) + (3 << 29) + MEDIA_BYTES + MESH_BYTES
     free = shutil.disk_usage(folder).free
     if free < need + (1 << 30):
         raise RuntimeError("phases 8-10 write %.2f GB into %s, which has "
@@ -3869,6 +3910,683 @@ def phase_graphs(results):
     time_training(results)
 
 
+# ------------------------------------------------------------- phase 12
+# Four ranks of one card: gloo collectives on cuda:0 (NCCL refuses two
+# ranks on one device).  They measure the code, not multi-GPU scaling.
+MESH_SHAPE = {"data": 2, "model": 2}
+MESH_CLIPS = 128        # global clips of a mesh step (64 per data rank)
+MESH_TAIL_VALID = 96    # the tail's label_mask ones: its zeros on data 1
+MESH_FWD_CLIPS = 16     # global clips of the mesh forwards
+MESH_TIME_STEPS = 3     # bf16 steps timed on the mesh
+MESH_WANT = {"lrn": 2, "lrn_bwd": 2, "lstm_step": FPC * LAYERS,
+             "conv1_dw": 0, "conv1_dw_shifted": 1}
+# the float32 configurations held to the single-process step
+MESH_CONFIGS = {"sgd": ({}, {}),
+                "adam": ({"optimizer": "adam"},
+                         {"ema_decay": 0.99, "accum_steps": 2})}
+# the card every rank runs on (gloo lets them share it)
+MESH_DEVICE = "cuda:0"
+# what phase 12 writes into phase 8's folder: two reference states (~1.3
+# GB), two artifacts, two or three checkpoints of ~0.5 GB
+MESH_BYTES = 4 << 30
+
+
+def _float32_exact():
+    """TF32 off and cuDNN's deterministic algorithms: float32 runs to
+    compare (the eager float32 step is not reproducible without them)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+
+
+def mesh_feed(processor, device):
+    """The global feed of the float32 mesh steps: an epoch tail whose
+    label_mask zeros all fall on data rank 1."""
+    feed = training_feed(processor, MESH_CLIPS, 120, device)
+    mask = torch.zeros(MESH_CLIPS, dtype=torch.float32, device=device)
+    mask[:MESH_TAIL_VALID] = 1.0
+    feed["label_mask"] = mask
+    return feed
+
+
+def mesh_start_params(model, device):
+    """The seed-0 parameters with fc6's and fc7's kernels scaled by 1/600
+    and 1/8, so that fc7's outputs are O(1) and not O(1e3): at the fresh
+    init the LSTM's gates saturate, where a float32 rounding difference
+    grows by the saturation's slope and the gradient is rounding noise
+    (the first mesh step's gradient norm parted from one process's by
+    3e-3 on one H100), as ``test_torch_run_task.py``'s weights
+    file keeps them out of saturation."""
+    params = model.init_params(0, device=device)
+    dcnn = params["frames"]["dcnn"]
+    with torch.no_grad():
+        dcnn["fc6"]["w"].mul_(1.0 / 600)
+        dcnn["fc7"]["w"].mul_(1.0 / 8)
+    return params
+
+
+def mesh_engine(name, clips, compute_dtype, device, mesh=None, split=1):
+    """A float32 (or bf16) engine of configuration ``name`` from
+    ``mesh_start_params``; ``split`` multiplies its accum_steps (one
+    process holding the mesh's micro-batches: the data ranks' rows, each
+    cut as a rank cuts them)."""
+    kw, opts = MESH_CONFIGS[name]
+    settings, model = training_flagship(clips, compute_dtype, **kw)
+    settings.train.dropout_keep_prob = 1.0
+    for k, v in opts.items():
+        setattr(settings.train, k, v)
+    settings.train.accum_steps = \
+        int(getattr(settings.train, "accum_steps", 1) or 1) * split
+    return Train(settings, settings.feeder, model, seed=0, device=device,
+                 graphs=False, mesh=mesh,
+                 params=mesh_start_params(model, device))
+
+
+class _CollectiveMeter:
+    """Times every all_reduce and all_gather of torch.distributed (a
+    sync before and after each) and counts its bytes."""
+
+    def __enter__(self):
+        import torch.distributed as dist
+        self.dist = dist
+        self.saved = (dist.all_reduce, dist.all_gather)
+        self.s, self.bytes, self.calls = 0.0, 0, 0
+
+        def timed(fn, nbytes):
+            def run(*args, **kwargs):
+                torch.cuda.synchronize()
+                t0 = time.monotonic()
+                out = fn(*args, **kwargs)
+                torch.cuda.synchronize()
+                self.s += time.monotonic() - t0
+                self.bytes += nbytes(*args)
+                self.calls += 1
+                return out
+            return run
+
+        dist.all_reduce = timed(self.saved[0],
+                                lambda t, *a: t.numel() * t.element_size())
+        dist.all_gather = timed(self.saved[1], lambda parts, t, *a: sum(
+            p.numel() * p.element_size() for p in parts))
+        return self
+
+    def __exit__(self, *exc):
+        self.dist.all_reduce, self.dist.all_gather = self.saved
+
+
+def _collectives_exact(mesh, device):
+    """all_reduce SUM and MAX, all_gather and broadcast of CUDA tensors
+    over gloo, each against its exact result."""
+    import torch.distributed as dist
+    r, n = mesh.rank, mesh.size
+    base = torch.arange(1024, dtype=torch.float32, device=device)
+    t = base * (r + 1)
+    dist.all_reduce(t, op=dist.ReduceOp.SUM)
+    ok = torch.equal(t, base * (n * (n + 1) // 2))
+    t = base * (r + 1)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    ok = ok and torch.equal(t, base * n)
+    parts = [torch.empty_like(base) for _ in range(n)]
+    dist.all_gather(parts, base + r)
+    ok = ok and all(torch.equal(p, base + i) for i, p in enumerate(parts))
+    t = base + r
+    dist.broadcast(t, 0)
+    ok = ok and torch.equal(t, base)
+    if not ok:
+        raise AssertionError("a gloo collective on CUDA tensors is not "
+                             "exact")
+    return ["all_reduce SUM", "all_reduce MAX", "all_gather", "broadcast"]
+
+
+def _mesh_states_agree(name, ref, got, start, adaptive):
+    """The gathered mesh state against the single-process one, tensor by
+    tensor, as a share of each tensor's largest single-process update
+    (``moved``).  Held: the train tests' rule (``test_torch_train.py``),
+    every element within 2% of ``moved`` + 1e-6 x max|value| for SGD; for
+    Adam, whose step moves every element by about lr whatever its
+    gradient (an element whose gradient is rounding noise may step the
+    other way), every element within two updates and at most 1% beyond
+    10% of one.  Reported: phase 11's rule (1e-3 x ``moved`` + 1e-7 x
+    max|value|), which a program held to itself meets, and the elements
+    beyond it."""
+    worst, beyond, n, failed = 0.0, 0, 0, []
+    for part in ("params", "opt_state", "ema_params"):
+        for k, v in ref.get(part, {}).items():
+            g = got[part][k]
+            if not v.is_floating_point():
+                if not torch.equal(v, g):
+                    failed.append("%s %s: %s vs %s" % (part, k, g, v))
+                continue
+            moved = float((v - start[part][k]).abs().max())
+            diff = (g - v).abs()
+            vmax = float(v.abs().max())
+            beyond += int((diff > 1e-3 * moved + 1e-7 * vmax).sum())
+            n += diff.numel()
+            worst = max(worst, float(diff.max()) / moved if moved else 0.0)
+            if adaptive:
+                atol = 1e-6 * vmax
+                ok = float(diff.max()) <= 2.0 * moved + atol and float(
+                    (diff > 0.1 * moved + atol).float().mean()) <= 0.01
+            else:
+                ok = float(diff.max()) <= 0.02 * moved + 1e-6 * vmax
+            if not ok:
+                failed.append("%s %s: %.3g (moved %.3g)"
+                              % (part, k, float(diff.max()), moved))
+    return {"worst_share_of_update": worst,
+            "elements_beyond_phase11_rule": beyond, "elements": n,
+            "failed": failed}
+
+
+def _metrics_agree(name, ref, got):
+    out = {}
+    for step, (r, g) in enumerate(zip(ref, got)):
+        for k, v in r.items():
+            rel = abs(g[k] - v) / max(abs(v), 1e-30)
+            out["%d/%s" % (step, k)] = rel
+            if k == "accuracy" and g[k] != v:
+                raise AssertionError("%s step %d accuracy %s vs %s"
+                                     % (name, step, g[k], v))
+    return out
+
+
+def mesh_rank(device, folder, consts=None):
+    """One of the 4 ranks of phase 12 on a (2, 2) mesh: the collectives;
+    the float32 SGD and Adam steps (rank 0 holds the gathered state to the
+    single-process one); launch counts; the float32, int8 and int8_static
+    forwards (the int8 activations recorded); bf16 steps timed."""
+    from video_learning_tpu_torch.parallel.mesh import make_mesh, shard_feed
+    globals().update(consts or {})
+    _float32_exact()
+    mesh = make_mesh(MESH_SHAPE)
+    out = {"rank": mesh.rank, "collectives": _collectives_exact(mesh,
+                                                                device)}
+    out["steps"] = {}
+    for name in MESH_CONFIGS:
+        engine = mesh_engine(name, MESH_CLIPS // mesh.data, "float32",
+                             device, mesh)
+        processor = engine.settings.feeder.datasets[0].processor
+        start = engine.state_dict()
+        m, launched = locked_step(engine, shard_feed(
+            mesh_feed(processor, device), mesh))
+        metrics = [m]
+        want = {k: v * engine._accum for k, v in MESH_WANT.items()}
+        if launched != want:
+            raise AssertionError("rank %d %s step launched %s, want %s"
+                                 % (mesh.rank, name, launched, want))
+        state = engine.state_dict()
+        res = {"metrics": metrics, "launches": launched}
+        if mesh.rank == 0:
+            ref = torch.load(os.path.join(folder, "ref_%s.pt" % name))
+            res["metrics_rel"] = _metrics_agree(name, ref["metrics"],
+                                                metrics)
+            res["state"] = _mesh_states_agree(name, ref["state"], state,
+                                              start, name == "adam")
+        out["steps"][name] = res
+        del engine, start, state
+        torch.cuda.empty_cache()
+
+    # forwards of the start params on this rank's rows
+    settings, model = training_flagship(MESH_FWD_CLIPS // mesh.data,
+                                        "float32")
+    settings.mesh_shape = MESH_SHAPE
+    processor = settings.feeder.datasets[0].processor
+    params = model.init_params(0, device=device)
+    feed = shard_feed(training_feed(processor, MESH_FWD_CLIPS, 130, device),
+                      mesh)
+    out["forward"] = {}
+    for mode in (None,) + INT8_MODES:
+        settings.val.quantize = mode
+        val = val_mod.Validation(settings, model, device=device, mesh=mesh)
+        reset_counts()
+        with _Quantizations() as q, _PlainLockedOut():
+            rows = val.run_forward(params, dict(feed))
+        if mode and mesh.model_index == 0:
+            torch.save(q.taken, os.path.join(
+                folder, "int8_%s_d%d.pt" % (mode, mesh.data_index)))
+        out["forward"][str(mode)] = {"rows": rows.tolist(),
+                                     "launches": counts(("lrn", "lstm_step",
+                                                         "int8_mm"))}
+    del params, val
+    torch.cuda.empty_cache()
+
+    # bf16 steps for time
+    engine = mesh_engine("sgd", MESH_CLIPS // mesh.data, "bfloat16", device,
+                         mesh)
+    processor = engine.settings.feeder.datasets[0].processor
+    feed = shard_feed(training_feed(processor, MESH_CLIPS, 140, device),
+                      mesh)
+    timed = []
+    for s in range(MESH_TIME_STEPS + 1):
+        torch.cuda.synchronize()
+        with _CollectiveMeter() as cm:
+            t0 = time.monotonic()
+            m, c = locked_step(engine, feed)
+            wall = time.monotonic() - t0
+        if c != MESH_WANT:
+            raise AssertionError("bf16 mesh step launched %s" % c)
+        if s:                       # the first step is the warmup
+            timed.append({"wall_ms": wall * 1e3,
+                          "collective_ms": cm.s * 1e3,
+                          "collective_bytes": cm.bytes,
+                          "collective_calls": cm.calls,
+                          "loss": m["loss"]})
+    out["bf16_steps"] = timed
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    return out
+
+
+def mesh_rank_pair(device, folder, cfg, arrays_path, consts=None):
+    """One of the 2 ranks of phase 12's second group: phase 6's captioner
+    in float32 on a (1, 2) mesh (greedy and beam-4 tokens of
+    CAPTION_ITEMS items), then a ``--mesh data=2`` export of phase 9's
+    checkpoint through ``cfg`` (its float32 twin), loaded in this group
+    and called on the saved arrays."""
+    from video_learning_tpu_torch.parallel.mesh import make_mesh
+    globals().update(consts or {})
+    _float32_exact()
+    settings, model = caption_flagship(batch_size=CAPTION_ITEMS,
+                                       compute_dtype="float32")
+    params = model.init_params(seed=0, device=device)
+    dset = model.caption_dataset
+    frames, prm = device_frames(dset.processor, CAPTION_ITEMS, 60, device)
+    feed = {"frames_main_input": frames,
+            "frames_main_input/proc_params": prm}
+    val = val_mod.Validation(settings, model, device=device,
+                             mesh=make_mesh({"data": 1, "model": 2}))
+    out = {"tokens": {}}
+    settings.captioning.beam_width = BEAM
+    for search in ("max", "beam"):
+        settings.captioning.caption_search = search
+        reset_counts()
+        with _PlainLockedOut():
+            ids = val.run_forward(params, dict(feed), decode=True)
+        out["tokens"][search] = ids.tolist()
+        out.setdefault("decode_launches", {})[search] = counts()
+    del params, val
+    torch.cuda.empty_cache()
+
+    path = os.path.join(folder, "export12_mesh.zip")
+    t0 = time.monotonic()
+    meta = export_mod.export(cfg, path, "latest",
+                             batch_items=EXPORT_BUCKETS, use_ema=True,
+                             mesh_shape={"data": 2}, device=device,
+                             workdir=os.path.join(folder, "x12"))
+    out["export_s"] = time.monotonic() - t0
+    module = serving.load(path, device=device)
+    with np.load(arrays_path) as z:
+        arrays = [z[i["name"].replace("/", "_")]
+                  for i in module.meta["inputs"]]
+    reset_counts()
+    with _PlainLockedOut():
+        logits = module(*arrays)
+    out.update(meta_mesh=meta.get("mesh"), loaded_mesh=module.meta["mesh"],
+               bucket=module.last_bucket, logits=logits.tolist(),
+               artifact_launches=counts())
+    return out
+
+
+def mesh_references(folder):
+    """The single-process float32 steps and forward the mesh is held to,
+    on the card, saved for the ranks; returns the forward's inputs and
+    model.  The step of one process on the global batch is the masked
+    mean either way; it runs as the mesh's micro-batches (accum_steps x
+    the data size), so that cuDNN sees the same batches on both sides
+    and what differs is the mesh: its split kernels, its sums."""
+    _float32_exact()
+    for name in MESH_CONFIGS:
+        engine = mesh_engine(name, MESH_CLIPS, "float32", "cuda",
+                             split=MESH_SHAPE["data"])
+        processor = engine.settings.feeder.datasets[0].processor
+        metrics = [engine.run_step(mesh_feed(processor, "cuda"))]
+        torch.save({"metrics": metrics, "state": engine.state_dict()},
+                   os.path.join(folder, "ref_%s.pt" % name))
+        del engine
+        torch.cuda.empty_cache()
+    settings, model = training_flagship(MESH_FWD_CLIPS, "float32")
+    processor = settings.feeder.datasets[0].processor
+    feed = training_feed(processor, MESH_FWD_CLIPS, 130, "cuda")
+    return settings, model, feed
+
+
+def mesh_forwards_vs_one(results, ranks, settings, model, feed, folder):
+    """Each rank's float32 rows within 1e-3 x max(1, max|logit|) of the
+    single-process forward's; each int8 mode's rows within that of a
+    single-process run of the global batch that takes the mesh's int8
+    activations (its data ranks' rows joined), every flip at a near
+    tie (phase 7's rule)."""
+    params = model.init_params(0, device="cuda")
+    report = {}
+    for mode in (None,) + INT8_MODES:
+        settings.val.quantize = mode
+        val = val_mod.Validation(settings, model, device="cuda",
+                                 graphs=False)
+        if mode is None:
+            want = val.run_forward(params, dict(feed))
+            flips = None
+        else:
+            recs = [torch.load(os.path.join(folder, "int8_%s_d%d.pt"
+                                            % (mode, d)))
+                    for d in range(MESH_SHAPE["data"])]
+            forced = []
+            for layer in zip(*recs):
+                if not all(torch.equal(layer[0][1], r[1]) for r in layer):
+                    raise AssertionError("%s: the data ranks' activation "
+                                         "scales differ" % mode)
+                forced.append((torch.cat([r[0] for r in layer]).cuda(),
+                               layer[0][1].cuda()))
+            with _Quantizations(forced) as q:
+                want = val.run_forward(params, dict(feed))
+            flips = q.report
+            if not all(f["max_tie_distance"] < 1e-3 for f in flips):
+                raise AssertionError("%s: an int8 activation differs mesh "
+                                     "vs one process away from a tie: %s"
+                                     % (mode, flips))
+        scale = max(1.0, float(np.abs(want).max()))
+        per = want.shape[0] // MESH_SHAPE["data"]
+        err = 0.0
+        for res in ranks:
+            d = res["rank"] // MESH_SHAPE["model"]
+            got = np.asarray(res["forward"][str(mode)]["rows"], np.float32)
+            err = max(err, float(np.abs(got - want[d * per:(d + 1) * per])
+                                 .max()))
+        # int8_static's first forward also runs its float calibration
+        want_launch = {k: v * (2 if mode == "int8_static" else 1)
+                       for k, v in VAL_WANT.items()}
+        want_launch["int8_mm"] = INT8_MM_PER_FORWARD if mode else 0
+        for res in ranks:
+            if res["forward"][str(mode)]["launches"] != want_launch:
+                raise AssertionError("%s mesh forward launched %s"
+                                     % (mode, res["forward"][str(mode)]))
+        log("  float32 %s forward of %d clips, each rank's rows vs one "
+            "process%s: max abs %.3g (tolerance %.3g)"
+            % (mode or "float", MESH_FWD_CLIPS,
+               " on the mesh's int8 activations" if mode else "", err,
+               1e-3 * scale))
+        if not err <= 1e-3 * scale:
+            raise AssertionError("%s mesh forward vs one process: %g"
+                                 % (mode, err))
+        report[str(mode)] = {"max_abs": err, "flips": flips}
+    results["mesh_forwards"] = report
+
+
+def mesh_caption_vs_one(results, pair):
+    """The (1, 2) captioner's tokens equal the single-process ones on
+    both ranks, except from a step where the single-process choice lies
+    within 1e-4 of a tie (phase 6's rule)."""
+    _float32_exact()
+    settings, model = caption_flagship(batch_size=CAPTION_ITEMS,
+                                       compute_dtype="float32")
+    params = model.init_params(seed=0, device="cuda")
+    dset = model.caption_dataset
+    frames, prm = device_frames(dset.processor, CAPTION_ITEMS, 60, "cuda")
+    pre = make_preprocessor(dset.processor, out_dtype=torch.float32,
+                            device="cuda")
+    ref = decode_margins(model, params,
+                         {"frames_main_input": pre(frames, prm)},
+                         dset.vocabulary.index("EOS"))
+    T = caption_sizes(model)[0]
+    report = {}
+    for search, key in (("max", "greedy"), ("beam", "beam")):
+        diffs = []
+        for res in pair:
+            got = np.asarray(res["tokens"][search])
+            diff = first_difference(got, ref[key])
+            if diff is not None and not ref["tie_" + key](*diff):
+                raise AssertionError("(1, 2) %s tokens differ at a decided "
+                                     "step %s" % (key, diff))
+            if res["decode_launches"][search] != {"lrn": 2,
+                                                  "lstm_step": T}:
+                raise AssertionError("(1, 2) %s decode launched %s"
+                                     % (key, res["decode_launches"]))
+            diffs.append(diff)
+        report[key] = diffs
+        log("  float32 %s decode of %d items on a (1, 2) mesh vs one "
+            "process: %s" % (key, CAPTION_ITEMS, "tokens equal" if
+                             diffs == [None, None] else "first difference "
+                             "%s, within a tie" % diffs))
+    results["mesh_caption"] = report
+    del params
+    torch.cuda.empty_cache()
+
+
+def mesh_export_arrays(folder, work):
+    """A float32 twin of phase 9's val config (``val12f.json``: in bf16
+    the mesh's half batches would meet other cuDNN algorithms than the
+    whole one, whose rounding is not the mesh's), its single-process
+    export (phase 10's buckets, EMA weights) called on RUN_VAL_ITEMS
+    items of seeded frames; the arrays are saved for the ranks.  Returns
+    (the config, the arrays' path, the logits)."""
+    with open(os.path.join(folder, "val9.json")) as f:
+        doc = json.load(f)
+    doc["run"]["compute_dtype"] = "float32"
+    cfg = os.path.join(folder, "val12f.json")
+    with open(cfg, "w") as f:
+        json.dump(doc, f)
+    one = os.path.join(work, "export12_one.zip")
+    export_mod.export(cfg, one, "latest", batch_items=EXPORT_BUCKETS,
+                      use_ema=True, workdir=os.path.join(work, "x12one"))
+    module = serving.load(one)
+    rs = np.random.RandomState(12)
+    dset = module.model.settings.feeder.datasets[0]
+    arrays = {}
+    for spec in module.meta["inputs"]:
+        rows = spec["shape"][0]
+        if spec["dtype"] == "uint8":
+            arrays[spec["name"]] = rs.randint(0, 256, spec["shape"],
+                                              np.uint8)
+        else:
+            arrays[spec["name"]] = dset.processor.draw_params(
+                rows, random.Random(12)).astype(spec["dtype"])
+    logits = module(*[arrays[i["name"]] for i in module.meta["inputs"]])
+    path = os.path.join(work, "arrays12.npz")
+    np.savez(path, **{k.replace("/", "_"): v for k, v in arrays.items()})
+    del module
+    torch.cuda.empty_cache()
+    return cfg, path, logits
+
+
+def _torchrun(folder, cfg, logdir, timeout=600):
+    env = dict(os.environ, OMP_NUM_THREADS="4",
+               PYTHONPATH=os.pathsep.join(
+                   [p for p in (os.path.dirname(os.path.abspath(
+                       __file__)), os.environ.get("PYTHONPATH")) if p]))
+    t0 = time.monotonic()
+    res = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "2", "--log-dir", logdir, "--redirects", "3",
+         "-m", "video_learning_tpu_torch.run_task", cfg, "--device",
+         MESH_DEVICE, "--backend", "gloo"],
+        cwd=folder, env=env, capture_output=True, text=True,
+        timeout=timeout)
+    wall = time.monotonic() - t0
+    logs = {}
+    for path in glob.glob(os.path.join(logdir, "**", "stderr.log"),
+                          recursive=True):
+        rank = int(os.path.basename(os.path.dirname(path)))
+        with open(path) as f:
+            logs[rank] = f.read()
+    if res.returncode != 0:
+        raise AssertionError("torch.distributed.run of %s failed (%d):\n%s"
+                             "\n%s" % (cfg, res.returncode,
+                                       res.stderr[-4000:],
+                                       "\n".join(v[-4000:] for v in
+                                                 logs.values())))
+    losses = {r: [float(x) for x in re.findall(
+        r"batch loss/nats : ([0-9.eE+-]+) /", text)]
+        for r, text in logs.items()}
+    return wall, losses
+
+
+def mesh_run_task(results, folder, train_path, val_path):
+    """``run_task`` as 2 ranks (``torch.distributed.run``, gloo on
+    cuda:0) on phase 8's packed set: a train epoch with an inline eval,
+    each artifact written once and equal loss streams; a val phase; a
+    resume that continues at the right global step."""
+    rf = os.path.join(folder, "run12")
+    over = dict(run_folder=rf, run_id="phase12", mesh_shape={"data": 2},
+                logging={"save_freq_per_epoch": 1, "level": "logging.INFO"})
+    got = {}
+    for what, name, phase, extra in (
+            ("train", "train12.json", "train", {}),
+            ("val", "val12.json", "val", {}),
+            ("resume", "resume12.json", "train",
+             {"resume_file": "latest"})):
+        cfg = run_config(folder, name, phase, train_path, val_path,
+                         **dict(over, **extra))
+        if what == "resume":
+            with open(cfg) as f:
+                doc = json.load(f)
+            doc["run"]["train"]["epochs"] = 2
+            with open(cfg, "w") as f:
+                json.dump(doc, f)
+        wall, losses = _torchrun(folder, cfg, os.path.join(folder,
+                                                           "logs_" + what))
+        got[what] = {"wall_s": wall, "losses": losses}
+        if phase == "train":
+            if sorted(losses) != [0, 1] or losses[0] != losses[1] or \
+                    not losses[0]:
+                raise AssertionError("%s: the ranks' loss streams %s"
+                                     % (what, losses))
+        log("  run_task %s on 2 ranks: %.1f s, losses %s"
+            % (what, wall, losses.get(0)))
+    ckpts = sorted(glob.glob(os.path.join(rf, "checkpoints", "*_gs_*.ckpt")))
+    progress = [os.path.basename(c).split("_", 2)[2] for c in ckpts]
+    files = sorted(glob.glob(os.path.join(rf, "tensorboard", "train",
+                                          "metrics_*.jsonl")),
+                   key=os.path.getmtime)
+    steps = [[json.loads(line)["step"] for line in open(f)
+              if "loss" in json.loads(line)] for f in files]
+    totals = glob.glob(os.path.join(rf, "validation_logits_*.total"))
+    accs = glob.glob(os.path.join(rf, "accuracy_*phase12*"))
+    n_train = len(got["train"]["losses"][0])
+    checks = {
+        "checkpoints_once": 0 < len(set(progress)) == len(progress),
+        "snaps": all(os.path.exists(c + ".snap") for c in ckpts),
+        "eval_state": os.path.exists(os.path.join(rf, "checkpoints",
+                                                  "eval_state.json")),
+        "one_metrics_file_per_run": len(files) == 2,
+        "resume_steps": steps == [list(range(1, n_train + 1)),
+                                  list(range(n_train + 1,
+                                             2 * n_train + 1))],
+        "one_total": len(totals) == 1 and
+        len(pickle_rows(totals[0])) == RUN_VAL_VIDEOS,
+        "accuracy_files": len(accs) == 2,
+        "no_tmp": not glob.glob(os.path.join(rf, "**", "*.tmp"),
+                                recursive=True)}
+    got["checks"] = checks
+    results["mesh_run_task"] = got
+    log("  run_task artifacts: %s; metrics steps %s" % (checks, steps))
+    if not all(checks.values()):
+        raise AssertionError("run_task on 2 ranks: %s" % checks)
+
+
+def pickle_rows(path):
+    import pickle
+    with open(path, "rb") as f:
+        return pickle.load(f)
+
+
+def phase_mesh(results, folder, train_path):
+    """Phase 12: the (data x model) mesh as ranks sharing the card."""
+    from video_learning_tpu_torch.parallel import launch
+    log("phase 12: a mesh of gloo ranks sharing %s (this measures the "
+        "code, not multi-GPU scaling)" % torch.cuda.get_device_name(0))
+    work = os.path.join(folder, "mesh12")
+    os.makedirs(work)
+    t0 = time.monotonic()
+    settings, model, feed = mesh_references(work)
+    torch.cuda.empty_cache()
+    results["mesh_reference_s"] = time.monotonic() - t0
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.monotonic()
+    ranks = launch.run(4, "chip_smoke:mesh_rank", {"folder": work},
+                       device=MESH_DEVICE, backend="gloo", timeout=900,
+                       threads=2, path=here)
+    results["mesh_ranks_s"] = time.monotonic() - t0
+    failures = []
+    steps = {}
+    for name in MESH_CONFIGS:
+        rel = ranks[0]["steps"][name]["metrics_rel"]
+        state = ranks[0]["steps"][name]["state"]
+        losses = [[m["loss"] for m in r["steps"][name]["metrics"]]
+                  for r in ranks]
+        if any(l != losses[0] for l in losses):
+            raise AssertionError("%s: the ranks' losses differ: %s"
+                                 % (name, losses))
+        worst = max(rel.values())
+        steps[name] = {"metrics_rel": rel, "state": state,
+                       "launches": ranks[0]["steps"][name]["launches"]}
+        log("  float32 %s steps on (2, 2) vs one process: metrics worst "
+            "relative %.3g (%s), state worst %.3g of an update, %d of %d "
+            "elements beyond phase 11's rule; launches per step %s"
+            % (name, worst, max(rel, key=rel.get),
+               state["worst_share_of_update"],
+               state["elements_beyond_phase11_rule"], state["elements"],
+               ranks[0]["steps"][name]["launches"]))
+        if state["failed"]:
+            failures.append("%s mesh state vs one process: %s"
+                            % (name, state["failed"]))
+        first = max(v for k, v in rel.items() if k.startswith("0/"))
+        if (worst if name == "sgd" else first) > 1e-5:
+            failures.append("%s mesh metrics vs one process beyond 1e-5 "
+                            "relative: %s" % (name, rel))
+    results["mesh_steps"] = steps
+    mesh_forwards_vs_one(results, ranks, settings, model, feed, work)
+    timing = []
+    for r in ranks:
+        rows = r["bf16_steps"]
+        n = len(rows)
+        timing.append({
+            "rank": r["rank"], "peak_gb": r["peak_bytes"] / 1e9,
+            "wall_ms": sum(x["wall_ms"] for x in rows) / n,
+            "collective_ms": sum(x["collective_ms"] for x in rows) / n,
+            "collective_mb": rows[0]["collective_bytes"] / 1e6,
+            "collective_calls": rows[0]["collective_calls"]})
+        t = timing[-1]
+        log("  bf16 step of %d clips a data rank, rank %d: %.1f ms wall, "
+            "%.1f ms in %d collectives of %.1f MB (%.2f GB/s), peak "
+            "%.1f GB" % (MESH_CLIPS // MESH_SHAPE["data"], t["rank"],
+                         t["wall_ms"], t["collective_ms"],
+                         t["collective_calls"], t["collective_mb"],
+                         t["collective_mb"] / max(t["collective_ms"], 1e-9),
+                         t["peak_gb"]))
+    results["mesh_bf16_steps"] = timing
+    del settings, model, feed
+    torch.cuda.empty_cache()
+
+    cfg, arrays, single = mesh_export_arrays(folder, work)
+    t0 = time.monotonic()
+    pair = launch.run(2, "chip_smoke:mesh_rank_pair", {
+        "folder": work, "cfg": cfg,
+        "arrays_path": arrays}, device=MESH_DEVICE, backend="gloo",
+        timeout=600, threads=4, path=here)
+    results["mesh_pair_s"] = time.monotonic() - t0
+    mesh_caption_vs_one(results, pair)
+    scale = max(1.0, float(np.abs(single).max()))
+    err = max(float(np.abs(np.asarray(p["logits"]) - single).max())
+              for p in pair)
+    for p in pair:
+        if p["meta_mesh"] != {"data": 2, "model": 1} or \
+                p["loaded_mesh"] != {"data": 2, "model": 1}:
+            raise AssertionError("mesh export meta %s" % p)
+        if p["artifact_launches"] != VAL_WANT:
+            raise AssertionError("mesh artifact launched %s"
+                                 % p["artifact_launches"])
+    results["mesh_export"] = {"max_abs": err, "export_s": pair[0]["export_s"],
+                              "bucket": pair[0]["bucket"]}
+    log("  --mesh data=2 float32 export (%.1f s), loaded in a 2-rank group: "
+        "logits vs the single-process artifact's max abs %.3g (tolerance "
+        "%.3g)"
+        % (pair[0]["export_s"], err, 1e-3 * scale))
+    if not err <= 1e-3 * scale:
+        failures.append("mesh artifact vs single: %g" % err)
+    torch.backends.cudnn.deterministic = False
+    mesh_run_task(results, folder, train_path,
+                  os.path.join(folder, "videos.val"))
+    if failures:
+        raise AssertionError("phase 12: %s" % failures)
+
+
 def kernel_entry(name, source, replaces, launches, cases, main_cases):
     """One kernel's line entry.  Times and bounds are for the launches of
     the main path's run (the sum over its launch sites); errors are the
@@ -3944,13 +4662,23 @@ def main(argv=None):
         phase_media(results, folder, train_path)
         results["media_phase_s"] = time.monotonic() - t0
         log("  phase 10 took %.1f s" % results["media_phase_s"])
+        torch.cuda.empty_cache()
+        t0 = time.monotonic()
+        phase_graphs(results)
+        results["graphs_phase_s"] = time.monotonic() - t0
+        log("  phase 11 took %.1f s" % results["graphs_phase_s"])
+        # phase 12 runs last: once other processes have used the card,
+        # the profiler loses one kernel record of every profiled replay
+        # of this process (a probe on one H100), and phase 11
+        # counts replays' kernels from those records
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.monotonic()
+        phase_mesh(results, folder, train_path)
+        results["mesh_phase_s"] = time.monotonic() - t0
+        log("  phase 12 took %.1f s" % results["mesh_phase_s"])
     finally:
         shutil.rmtree(folder, ignore_errors=True)
-    torch.cuda.empty_cache()
-    t0 = time.monotonic()
-    phase_graphs(results)
-    results["graphs_phase_s"] = time.monotonic() - t0
-    log("  phase 11 took %.1f s" % results["graphs_phase_s"])
 
     launches = dict(results["main_path_launches"],
                     lrn_bwd=results["train_launches"]["lrn_bwd"],

@@ -15,5 +15,7 @@ path from media to answer: offline packing (``data/serialize.py``,
 and export from a checkpoint (``tools/export_serving.py``), and on the
 card every program (the training step, ``Train.compile_scan_steps``, the
 evaluation and serving forward, the caption decodes) as a CUDA graph
-replay (``graphs.py``).
+replay (``graphs.py``), and the (data x model) mesh of
+``torch.distributed`` ranks for training, evaluation, the run driver and
+export (``parallel/``).
 """

@@ -11,11 +11,16 @@ both packages.
 
 Fields of the JAX package that the port reads and checks as it does,
 then leaves: ``compile_cache`` and ``remat`` (logged as ignored);
-``mesh_shape`` other than one device on every axis raises (not ported
-yet), and so does ``checkpoint_backend: orbax`` (a JAX library's format;
-the port writes npz, which both packages load).  ``host_shards: auto``
-takes the world size and rank of ``torch.distributed`` when it is
-initialised, else one shard.
+``checkpoint_backend: orbax`` raises (a JAX library's format; the port
+writes npz, which both packages load).  ``mesh_shape`` ({"data": N,
+"model": M}) is kept on ``Settings`` for ``Train`` and ``Validation``,
+which build their mesh of ``torch.distributed`` ranks from it
+(``parallel/mesh.py``).  ``host_shards: auto`` shards a training
+dataset over the mesh's data axis: as many shards as the data size, and
+this rank's data coordinate as its index, so that the ranks of one model
+group read the same rows (one shard outside a process group).  A
+training dataset with explicit ``host_shards`` on a data axis above 1
+must have as many shards as the axis.
 
 ``GeometryDataset`` / ``GeometryFeeder`` describe a dataset by its frame
 geometry and preprocessing chain alone (plus, for a captioning dataset,
@@ -149,12 +154,22 @@ def load_run_document(init_file):
     return load_document(init_file, "run")
 
 
-def _host_shard_slot():
-    """(world size, rank) of an initialised torch.distributed group, else
-    (1, 0): the port's counterpart of jax.process_count/process_index."""
+def _host_shard_slot(mesh_shape=None):
+    """(shards, shard index) of a training dataset with ``host_shards:
+    auto``: the data size of the mesh and this rank's data coordinate
+    (rank // model) in an initialised torch.distributed group, else
+    (1, 0).  The ranks of one model group hold the same rows, so they
+    read the same shard.  A shape that does not fill the world gives
+    (world size, rank); the mesh itself refuses it when it is built."""
     import torch.distributed as dist
+
+    from video_learning_tpu_torch.parallel.mesh import mesh_axes
     if dist.is_available() and dist.is_initialized():
-        return dist.get_world_size(), dist.get_rank()
+        size, rank = dist.get_world_size(), dist.get_rank()
+        data, model = mesh_axes(mesh_shape, size)
+        if data * model != size:
+            return size, rank
+        return data, rank // model
     return 1, 0
 
 
@@ -314,11 +329,23 @@ class Settings:
         self.seed = _num(config.get("seed", 0), "seed", int)
         if config.get("mesh_shape"):
             self.mesh_shape = dict(config["mesh_shape"])
-            if any(_num(v, "mesh_shape.%s" % k, int, minimum=1) != 1
-                   for k, v in self.mesh_shape.items()):
-                error("mesh_shape %s: meshes of more than one device are "
-                      "not ported yet (ROADMAP Queue 1, item 6)"
-                      % self.mesh_shape)
+            unknown = sorted(set(self.mesh_shape) - {"data", "model"})
+            if unknown:
+                error("mesh_shape axes are data and model; got %s"
+                      % unknown)
+            self.mesh_shape = {
+                k: _num(v, "mesh_shape.%s" % k, int, minimum=1)
+                for k, v in self.mesh_shape.items()}
+            from video_learning_tpu_torch.parallel.mesh import (mesh_axes,
+                                                                 world)
+            size = world()[0]
+            data, model = mesh_axes(self.mesh_shape, size)
+            if data * model > size:
+                error("mesh_shape data=%d x model=%d needs %d ranks; this "
+                      "process is in a world of %d: start the ranks with "
+                      "python -m torch.distributed.run --nproc-per-node %d "
+                      "(the mesh: ROADMAP Queue 1, item 6)"
+                      % (data, model, data * model, size, data * model))
         if config.get("compute_dtype"):
             self.compute_dtype = str(config["compute_dtype"])
         self.remat = bool(config.get("remat", False))
@@ -632,7 +659,7 @@ class Settings:
                     # only training data shards automatically; every host
                     # evaluates the whole validation set
                     dset.host_shards, dset.host_shard_index = \
-                        _host_shard_slot()
+                        _host_shard_slot(self.mesh_shape)
             else:
                 dset.host_shards = _num(shards, "host_shards", int,
                                         minimum=1)
@@ -686,6 +713,26 @@ class Settings:
                     info("Attached captioning to dataset [%s] (V=%d)"
                          % (d.id, len(d.vocabulary)))
 
+    def _check_mesh_sharding(self):
+        """On a data axis above 1 every training dataset must be split
+        into as many host shards as the axis: each data rank feeds its
+        own rows, and equal shards give every rank the same number of
+        steps (a rank with a step more would wait for its peers at a
+        collective for ever)."""
+        import torch.distributed as dist
+
+        from video_learning_tpu_torch.parallel.mesh import mesh_axes
+        if not (dist.is_available() and dist.is_initialized()):
+            return
+        data, model = mesh_axes(self.mesh_shape, dist.get_world_size())
+        if data <= 1 or data * model != dist.get_world_size():
+            return
+        for d in self.feeder.datasets.get(defs.phase.train, []):
+            if d.host_shards != data:
+                error("Dataset [%s] has host_shards %d on a mesh whose data "
+                      "axis is %d: use host_shards: auto (or %d)"
+                      % (d.id, d.host_shards, data, data))
+
     def initialize(self, init_file):
         """Full startup: parse the config, copy it into the run folder,
         attach captioning, compute the datasets' batch plans and resume
@@ -693,7 +740,9 @@ class Settings:
         self.initialize_from_file(init_file)
         self.attach_captioning()
 
-        if os.path.dirname(os.path.abspath(init_file)) != \
+        self._check_mesh_sharding()
+        from video_learning_tpu_torch.parallel.mesh import is_primary
+        if is_primary() and os.path.dirname(os.path.abspath(init_file)) != \
                 os.path.abspath(self.run_folder):
             shutil.copyfile(init_file, os.path.join(
                 self.run_folder, os.path.basename(init_file)))

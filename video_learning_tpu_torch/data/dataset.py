@@ -720,13 +720,24 @@ class Dataset:
 
     def validation_logits_to_captions(self, logits, start_index=0):
         """Decoded rows of this dataset's items from ``start_index`` on ->
-        COCO {"image_id", "caption"} records.  The rotating host shard's
-        mapping to global items waits for multi-GPU (ROADMAP Queue 1,
-        item 6)."""
+        COCO {"image_id", "caption"} records.  A host-sharded dataset
+        decodes only its items, and the id recovery reads the global
+        paths file, so the rows are offset to their global items; under
+        the rotating shard boundary the rows must map to one contiguous
+        run of global items (a window that wraps round the end raises,
+        as in the JAX package)."""
         from video_learning_tpu_torch.data import captions
         if self._shard_rotating:
-            error("Caption id recovery over a rotating host shard is not "
-                  "ported yet (ROADMAP Queue 1, item 6)")
+            sel = self._shard_item_sel[start_index:
+                                       start_index + len(logits)]
+            if len(sel) and not np.array_equal(
+                    sel, sel[0] + np.arange(len(sel))):
+                error("Caption id recovery across a wrapped rotating "
+                      "shard window is unsupported; use divisible "
+                      "host_shards for caption validation")
+            offset = int(sel[0]) if len(sel) else 0
+            return captions.validation_logits_to_captions(
+                logits, self.path, self.vocabulary, self.eval_type, offset)
         return captions.validation_logits_to_captions(
             logits, self.path, self.vocabulary, self.eval_type,
             self._shard_item_offset + start_index)

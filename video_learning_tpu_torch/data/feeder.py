@@ -7,9 +7,10 @@ dataset's batch, computes the save cadence from ``save_freq_per_epoch``,
 saves checkpoints with their JSON ``.snap`` sidecar [batch_index,
 epoch_index, global_step] (written after the parameters, on a thread with
 ``checkpoint_async``), keeps at most ``num_saves`` of them, and resumes
-the datasets' positions and the parameters from one.  Every process
-writes: the single-writer guard of a multi-process run waits for
-multi-GPU (ROADMAP Queue 1, item 6).  ``prepare_feed`` and
+the datasets' positions and the parameters from one.  In a group of
+several ranks that share one run folder only global rank 0 writes
+(``save`` returns None on the others, as the JAX feeder's process check
+does); every rank restores from the same files.  ``prepare_feed`` and
 ``count_clips`` are ``run_task._prepare_feed`` and ``_count_clips``.
 """
 
@@ -20,6 +21,7 @@ from video_learning_tpu_torch import checkpoint as ckpt_mod
 from video_learning_tpu_torch.data import captions
 from video_learning_tpu_torch.data import dataset as dataset_mod
 from video_learning_tpu_torch.defs import defs
+from video_learning_tpu_torch.parallel.mesh import is_primary
 from video_learning_tpu_torch.utils import (error, get_datetime_str,
                                             get_run_checkpoints, info,
                                             warning)
@@ -218,7 +220,11 @@ class Feeder:
         ``fixed_name`` writes ``<name>.ckpt`` outside the rotation
         (``best``), dropping its old ``.snap`` first so that a crash
         mid-overwrite cannot pair new parameters with an old position.
-        Returns the checkpoint's path."""
+        Returns the checkpoint's path; on every rank but global rank 0,
+        which alone writes, None (``state`` is whole on every rank, so it
+        is the same)."""
+        if not is_primary():
+            return None
         folder = os.path.join(self.run_folder, "checkpoints")
         os.makedirs(folder, exist_ok=True)
         base = os.path.join(

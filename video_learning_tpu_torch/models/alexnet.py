@@ -41,6 +41,7 @@ from video_learning_tpu_torch.models.layers import (
     fc_apply, fc_apply_int8, fc_init, flat_dim, hwio_to_oihw,
     local_response_normalization, max_pool, quantize_sym, same_pads)
 from video_learning_tpu_torch.ops import conv1_dw as conv1_dw_ops
+from video_learning_tpu_torch.parallel import mesh as mesh_mod
 from video_learning_tpu_torch.utils import error, info
 
 # (kernel_h, kernel_w, in_ch, out_ch, stride, groups)
@@ -261,7 +262,9 @@ def apply_calib(params, x, final_layer="prob", compute_dtype=None):
     taps = {}
 
     def tap(name, inp):
-        taps[name] = inp.abs().amax().to(torch.float32)
+        # on a mesh, the amax of the global batch (MAX over the data
+        # group), so that every rank bakes the same scales
+        taps[name] = mesh_mod.data_max(inp.abs().amax().to(torch.float32))
         return inp
 
     def conv(name, inp):

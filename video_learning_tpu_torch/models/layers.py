@@ -19,6 +19,13 @@ The w8a8 serving layers (``quantize_sym``, ``quantize_static``,
 in float32, rounded half to even, clamped to +-127; scale = amax / 127 +
 1e-12 in float32; the int32 product (``ops/int8_mm.py``); the epilogue
 acc * (xs * ws) + b in float32.
+
+On a mesh (``Model.apply(mesh=...)``) an FC entry that carries a
+``parallel.sharding.TensorParallel`` under "tp" holds its column slice:
+it multiplies the input (identity forward, gradient summed over the
+model group) by its slice and gathers the output features, and the int8
+layers take the MAX of their dynamic activation amax over the data
+group, the amax of the global batch.  Without a mesh nothing changes.
 """
 
 import numpy as np
@@ -27,13 +34,17 @@ import torch.nn.functional as F
 
 from video_learning_tpu_torch.ops.int8_mm import int8_mm
 from video_learning_tpu_torch.ops.lrn import LRNFunction
+from video_learning_tpu_torch.parallel import mesh as mesh_mod
 from video_learning_tpu_torch.utils import error
 
 
 def truncated_normal(generator, shape, stddev=0.05, mean=0.0, device="cpu"):
     """TF-style truncated normal: values beyond 2 std are re-drawn.  Drawn
     from a CPU ``torch.Generator`` so that one seed gives the same values
-    on every device."""
+    on every device.  On the meta device it draws nothing (the shapes of
+    a tree, ``Model.param_shapes``)."""
+    if torch.device(device).type == "meta":
+        return torch.empty(tuple(shape), device="meta")
     z = torch.randn(tuple(shape), generator=generator)
     bad = z.abs() > 2.0
     while bool(bad.any()):
@@ -55,13 +66,22 @@ def fc_init(generator, in_dim, out_dim, w_stddev=0.05, bias=0.1,
 def fc_apply(params, x, compute_dtype=None):
     """x @ w + b: operands rounded to the compute dtype, the product
     accumulated and returned in float32 (the JAX
-    ``preferred_element_type=float32``), the bias added in float32."""
+    ``preferred_element_type=float32``), the bias added in float32.  A
+    column-split entry (module docstring) returns the whole output on
+    every rank of its model group."""
     w, b = params["w"], params["b"]
+    tp = params.get("tp")
+    if tp is not None:
+        x = tp.enter(x)
     if compute_dtype is not None:
         x = x.to(compute_dtype)
         w = w.to(compute_dtype)
     y = torch.matmul(x.to(torch.float32), w.to(torch.float32))
-    return y + b.to(torch.float32)
+    if tp is None:
+        return y + b.to(torch.float32)
+    if tp.bias_split:
+        return tp.gather(y + b.to(torch.float32))
+    return tp.gather(y) + b.to(torch.float32)
 
 
 def convert_dim_fc_init(generator, in_dim, out_dim, device="cpu"):
@@ -186,10 +206,14 @@ def _int8_weight(params, axes):
 
 def _int8_input(params, x):
     """(xq, xs): against the calibrated static scale ``xs`` when the
-    entry has one, else the dynamic per-tensor amax of this batch."""
+    entry has one, else the dynamic per-tensor amax of this batch (on a
+    mesh, of the global batch: the MAX over the data group)."""
     if "xs" in params:
         return quantize_static(x, params["xs"])
-    return quantize_sym(x, axes=None)
+    if mesh_mod.current() is None:
+        return quantize_sym(x, axes=None)
+    a = mesh_mod.data_max(x.abs().amax().to(torch.float32))
+    return quantize_static(x, a / 127.0 + 1e-12)
 
 
 def _dequantize(acc, xs, ws, b):
@@ -284,8 +308,14 @@ def fc_apply_int8(params, x):
     bias.  Takes raw or pre-quantized entries like ``conv_apply_int8``."""
     wq, ws = _int8_weight(params, FC_WEIGHT_AXES)
     xq, xs = _int8_input(params, x)
-    return _dequantize(int8_mm(xq.contiguous(), wq.contiguous()), xs, ws,
-                       params["b"])
+    tp = params.get("tp")
+    if tp is None:
+        return _dequantize(int8_mm(xq.contiguous(), wq.contiguous()), xs,
+                           ws, params["b"])
+    # a column slice: its per-column weight scales are the whole
+    # kernel's, sliced
+    return tp.gather(_dequantize(int8_mm(xq.contiguous(), wq.contiguous()),
+                                 xs, ws, tp.local_bias(params["b"])))
 
 
 # ----------------------------------------------------------------- dropout

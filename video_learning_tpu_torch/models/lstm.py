@@ -21,6 +21,15 @@ layer, the input projection x @ Wx as a float32 matmul and one
 It needs no gradient and runs under ``torch.no_grad()``, so that live
 training parameters (which require gradients) may be passed.  Nothing
 in the loop reads a tensor back to the host.
+
+On a mesh a layer whose fused kernel is split over the model axis
+carries a ``TensorParallel`` mark (``parallel/sharding.py``).  The
+kernel needs all four gates of a unit, which a column slice does not
+hold, so the layer's kernel is gathered once per forward or decode,
+before the loop over T (``sharding.whole``; its gradient is each rank's
+own slice), and the step runs whole on every rank.  A split
+``output_fc`` gathers its logits before the argmax, the top-K and the
+log-softmax.
 """
 
 import torch
@@ -28,6 +37,7 @@ import torch
 from video_learning_tpu_torch.defs import defs
 from video_learning_tpu_torch.models.layers import fc_apply, truncated_normal
 from video_learning_tpu_torch.ops.lstm_step import LSTMStepFunction, lstm_step
+from video_learning_tpu_torch.parallel.sharding import whole
 from video_learning_tpu_torch.utils import error
 
 
@@ -89,6 +99,7 @@ def evaluate_sequence(params, x, num_hidden, sequence_len, lengths=None,
     seq = x
     final_states = []
     for l, layer in enumerate(params["cells"]):
+        layer = whole(layer)
         wx, wh = _split_kernel(layer, seq.shape[-1])
         mm_in = seq
         if compute_dtype is not None:
@@ -152,6 +163,7 @@ def greedy_decode(params, out_fc_params, visual, embedding_matrix,
     if return_type not in defs.return_type:
         error("Undefined lstm return type [%s]" % return_type)
     want_logits = return_type == defs.return_type.standard
+    params = {"cells": [whole(layer) for layer in params["cells"]]}
     num_layers = len(params["cells"])
     emb = embedding_matrix
     emb_dim = emb.shape[1]
@@ -227,6 +239,7 @@ def beam_decode(params, out_fc_params, visual, embedding_matrix, bos_index,
     are greedy_decode's; input_bias feeds the visual through the cell
     once before the loop.  Returns (B, T) int32 tokens of each item's
     best beam."""
+    params = {"cells": [whole(layer) for layer in params["cells"]]}
     num_layers = len(params["cells"])
     emb = embedding_matrix
     V, emb_dim = emb.shape

@@ -25,6 +25,15 @@ classification:
   encoders' weights once and ``calib_taps`` collects the activation
   ranges that int8_static bakes in.
 
+On a mesh (``apply(..., mesh=...)``, a ``parallel.mesh.Mesh`` of more
+than one rank) ``params`` holds this rank's slices of the leaves the
+JAX sharding rule splits over the model axis (``sharded_leaves``, from
+the whole shapes of ``param_shapes``) and the feed holds this rank's
+rows.  ``apply`` marks the split entries for the layers
+(``parallel.sharding.mark``) and makes the mesh current for the int8
+amax, and returns the output of this rank's rows; every rank of a
+model group returns the same.  Without a mesh nothing changes.
+
 Parameter-tree names equal the JAX names (``frames/dcnn/conv1/w``,
 ``clf/lstm/cells/0/w``, ``clf/state_fc/w``, ``clf/output_fc/b``), so
 checkpoints move between the packages by name (``checkpoint.py``).
@@ -40,6 +49,8 @@ from video_learning_tpu_torch.models.layers import (convert_dim_fc_apply,
                                                     convert_dim_fc_init,
                                                     dropout, fc_init)
 from video_learning_tpu_torch.ops import fusion
+from video_learning_tpu_torch.parallel import mesh as mesh_mod
+from video_learning_tpu_torch.parallel import sharding
 from video_learning_tpu_torch.utils import (debug, error, fold_in,
                                             resolve_device, warning)
 
@@ -100,6 +111,7 @@ class Model:
         self.caption_dataset = None
         self._embeddings = {}       # device -> the caption embedding matrix
         self._groups = {"regular": [], "modified": []}
+        self._param_shapes = None
         self._resolve()
 
     # ------------------------------------------------------------- resolve
@@ -266,6 +278,22 @@ class Model:
                 self._groups["modified"].append(name + "/output_fc")
         return p
 
+    def param_shapes(self):
+        """{flat name: whole shape} of the parameter tree (from an init on
+        the meta device, which draws nothing), computed once."""
+        if self._param_shapes is None:
+            from video_learning_tpu_torch.checkpoint import flatten_tree
+            self._param_shapes = {
+                n: tuple(t.shape) for n, t in
+                flatten_tree(self.init_params(0, device="meta")).items()
+                if t is not None}
+        return self._param_shapes
+
+    def sharded_leaves(self, model_size):
+        """{flat name: split dimension} of the leaves the JAX rule splits
+        over a model axis of ``model_size``."""
+        return sharding.sharded_leaves(self.param_shapes(), model_size)
+
     def param_groups(self):
         """(regular, modified) parameter path prefixes for two-tier LR."""
         return self._groups["regular"], self._groups["modified"]
@@ -306,7 +334,7 @@ class Model:
     # --------------------------------------------------------------- apply
     def apply(self, params, feed, train=False, dropout_generator=None,
               conv1_dw="shifted", decode=False, quantize=None,
-              calib_taps=None):
+              calib_taps=None, mesh=None):
         """Run the full DAG.  feed: {input_key: tensor or array}; arrays
         move to the parameters' device.  Returns float32 logits,
         (num_items, num_classes) for classification and (B*T,
@@ -327,7 +355,15 @@ class Model:
         or ``quantize_params`` parameters.  ``calib_taps``, a dict, runs
         the float forward and fills it with {pipeline: {layer: amax}}
         activation ranges (0-d tensors) of every int8-capable encoder:
-        the calibration pass of int8_static."""
+        the calibration pass of int8_static.  ``mesh``: this rank's
+        slices and rows on a mesh (module docstring)."""
+        if mesh is not None and mesh.size > 1:
+            if mesh.model > 1:
+                params = sharding.mark(params,
+                                       self.sharded_leaves(mesh.model), mesh)
+            with mesh_mod.use(mesh):
+                return self.apply(params, feed, train, dropout_generator,
+                                  conv1_dw, decode, quantize, calib_taps)
         if quantize is not None and train:
             error("quantize=%s is a serving (forward-only) mode; "
                   "training gradients through int8 rounding are zero"
@@ -356,7 +392,7 @@ class Model:
             outputs[spec["name"]] = logits
         return logits
 
-    def decoder_inputs(self, params, feed, quantize=None):
+    def decoder_inputs(self, params, feed, quantize=None, mesh=None):
         """The keyword arguments ``apply(decode=True)`` gives
         ``greedy_decode`` for ``feed`` (``beam_decode`` takes them with
         ``eos_index``): the captioner's LSTM and ``output_fc`` parameters,
@@ -367,7 +403,7 @@ class Model:
         mode.  ``quantize`` as ``apply`` takes it: the frame encoders of
         the conditioning in int8."""
         return self.apply(params, feed, decode=_DECODER_INPUTS,
-                          quantize=quantize)
+                          quantize=quantize, mesh=mesh)
 
     def _apply_pipeline(self, p, spec, feed, outputs, train,
                         dropout_generator, conv1_dw, decode, quantize,

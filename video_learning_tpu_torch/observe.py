@@ -19,9 +19,16 @@ from video_learning_tpu_torch.utils import info, warning
 
 class MetricsWriter:
     """Append-only JSONL scalar writer of one run phase, with an optional
-    TensorBoard event sink (``events=True``)."""
+    TensorBoard event sink (``events=True``).  ``primary=False`` writes
+    nothing: in a group of ranks that share a run folder only global
+    rank 0 streams the metrics, which are global (all-rank reductions)."""
 
-    def __init__(self, folder, run_id, timestamp=None, events=False):
+    def __init__(self, folder, run_id, timestamp=None, events=False,
+                 primary=True):
+        self._primary = bool(primary)
+        self.path, self._f, self._tb = None, None, None
+        if not self._primary:
+            return
         os.makedirs(folder, exist_ok=True)
         suffix = ("%s_%s" % (run_id, timestamp)) if timestamp else run_id
         self.path = os.path.join(folder, "metrics_%s.jsonl" % suffix)
@@ -39,6 +46,8 @@ class MetricsWriter:
                 info("TensorBoard event sink enabled at %s" % folder)
 
     def write(self, step, **scalars):
+        if not self._primary:
+            return
         rec = {"step": int(step), "time": time.time()}
         rec.update({k: (float(v) if hasattr(v, "__float__") else v)
                     for k, v in scalars.items()})
@@ -49,11 +58,15 @@ class MetricsWriter:
                     self._tb.add_scalar(k, float(v), int(step))
 
     def flush(self):
+        if not self._primary:
+            return
         self._f.flush()
         if self._tb is not None:
             self._tb.flush()
 
     def close(self):
+        if not self._primary:
+            return
         self._f.close()
         if self._tb is not None:
             self._tb.close()

@@ -15,8 +15,20 @@ Validation fuses and accumulates the logits and writes
 ``accuracy_<run_id>`` and ``accuracy_top<k>_<run_id>``, or for a
 captioner decodes, writes ``coco.results.json`` and scores it.
 
+On a mesh the ranks share the run folder: started by
+``python -m torch.distributed.run --nproc-per-node N -m
+video_learning_tpu_torch.run_task config.json`` (the config's
+``mesh_shape`` arranges them; without one they all go on the data axis)
+each rank trains on its host shard of the training data and evaluates
+the whole validation set, and only global rank 0 writes the checkpoints,
+``eval_state.json``, the metrics JSONL, the chunk files and the accuracy
+files.  Every rank stops and saves together on a SIGTERM that reached
+any of them (the save gathers the sharded tensors, a collective), and
+none leaves before rank 0's last write has landed.
+
 Usage: python -m video_learning_tpu_torch.run_task config.{json,yml}
-[--device cpu]   (runs on the GPU by default; YAML needs PyYAML)
+[--device cpu] [--backend gloo]   (runs on the GPU by default, one card
+per rank over NCCL; YAML needs PyYAML)
 """
 
 import argparse
@@ -38,6 +50,7 @@ from video_learning_tpu_torch.data.prefetch import FeedPrefetcher
 from video_learning_tpu_torch.defs import defs
 from video_learning_tpu_torch.models.pipeline import Model
 from video_learning_tpu_torch.observe import MetricsWriter, StepProfiler
+from video_learning_tpu_torch.parallel.mesh import init_distributed, is_primary
 from video_learning_tpu_torch.train import Train
 from video_learning_tpu_torch.utils import elapsed_str, error, info
 from video_learning_tpu_torch.val import Validation
@@ -133,6 +146,8 @@ def _load_eval_state(settings):
 
 
 def _save_eval_state(settings, best_acc, stale_evals):
+    if not is_primary():        # shared run folder: one writer
+        return
     path = _eval_state_path(settings)
     os.makedirs(os.path.dirname(path), exist_ok=True)
     tmp = path + ".tmp"
@@ -144,6 +159,15 @@ def _save_eval_state(settings, best_acc, stale_evals):
 def _progress(settings, batch, step, suffix=""):
     return "ep_%d_btch_%d_gs_%d%s" % (1 + settings.train.epoch_index, batch,
                                       step, suffix)
+
+
+def _any_rank(engine, flag):
+    """Whether ``flag`` holds on any rank of the engine's mesh (an
+    all-reduce; the flag itself off a mesh)."""
+    if engine.mesh.size == 1:
+        return flag
+    t = torch.tensor([1.0 if flag else 0.0], device=engine.device)
+    return bool(engine.mesh.world_max(t).item() > 0)
 
 
 def do_train(settings, engine, feeder, model, writer):
@@ -218,10 +242,11 @@ def do_train(settings, engine, feeder, model, writer):
                                 batch_index=batch_index + 1)
                     # a save is not training throughput
                     step_tic = time.monotonic()
-                if preempt["sig"] is not None:
-                    info("Caught signal %d (preemption): saving "
+                if _any_rank(engine, preempt["sig"] is not None):
+                    info("Caught signal %s (preemption): saving "
                          "checkpoint and stopping after %d batches this "
-                         "epoch." % (preempt["sig"], batch_index + 1))
+                         "epoch." % (preempt["sig"] or "on another rank",
+                                     batch_index + 1))
                     if saved_this_batch:
                         info("Position already checkpointed by the "
                              "periodic save this batch; skipping the "
@@ -288,6 +313,7 @@ def do_train(settings, engine, feeder, model, writer):
         # raised, so no checkpoint logged as saved is left half-written
         try:
             feeder.finish_saves()
+            engine.mesh.barrier()
         finally:
             restore_handler()
     if preempted:
@@ -346,7 +372,8 @@ def do_test(settings, val, params, feeder, model, writer):
              % (elapsed_str(tic), accuracy))
         for k in top_ks:
             info("Top-%d accuracy: %2.5f" % (k, accs[k]))
-        if val.validation_logits_save_interval is not None:
+        if val.validation_logits_save_interval is not None and \
+                is_primary():       # shared run folder: one writer
             with open(os.path.join(settings.run_folder,
                                    "accuracy_" + settings.run_id),
                       "w") as f:
@@ -361,14 +388,18 @@ def do_test(settings, val, params, feeder, model, writer):
     return accuracy
 
 
-def main(init_file, device="cuda"):
-    """Run the phase of the run config ``init_file`` on ``device``."""
+def main(init_file, device="cuda", backend=None):
+    """Run the phase of the run config ``init_file`` on ``device``; a
+    rank started by ``torch.distributed.run`` first joins its group
+    (``parallel.mesh.init_distributed(device, backend)``)."""
+    device = init_distributed(device, backend)
     settings = Settings()
     feeder = settings.initialize(init_file)
     model = Model(settings)
     writer = MetricsWriter(settings.tensorboard_folder, settings.run_id,
                            settings.timestamp,
-                           events=settings.tensorboard_events)
+                           events=settings.tensorboard_events,
+                           primary=is_primary())
     try:
         if settings.train:
             engine = Train(settings, feeder, model, seed=settings.seed,
@@ -411,9 +442,13 @@ def cli(argv=None):
     parser.add_argument("init_file", help="JSON (or YAML) run config.")
     parser.add_argument("--device", default="cuda",
                         help="torch device (default cuda; cpu to run on "
-                             "the CPU)")
+                             "the CPU; cuda:0 puts every rank on card 0)")
+    parser.add_argument("--backend", choices=("nccl", "gloo"),
+                        help="process-group backend of a multi-rank run "
+                             "(default nccl on cuda, gloo on the cpu; "
+                             "gloo lets ranks share a card)")
     args = parser.parse_args(argv)
-    main(args.init_file, device=args.device)
+    main(args.init_file, device=args.device, backend=args.backend)
 
 
 if __name__ == "__main__":

@@ -51,7 +51,17 @@ otherwise and in artifacts written before they were recorded),
 ``params.npz`` (JAX flat names and layouts, so the artifact is also a
 checkpoint for either package, float even for an int8 module) and, for a
 captioner, ``embeddings.npz`` (each caption dataset's embedding matrix
-by dataset tag).  Multi-device export is not ported yet.
+by dataset tag).
+
+On a mesh (``mesh``: a ``parallel.mesh.Mesh`` of more than one rank) the
+module is called on every rank with the whole request batch, as the JAX
+consumer passes it: each rank runs its rows of the padded bucket, with
+its slices of the split kernels, and the outputs are gathered over the
+data group, so every rank returns the whole result, as JAX's replicated
+``out_shardings`` give it.  Every bucket's input rows must divide the
+data axis.  The meta then records ``mesh`` ({"data", "model"}), and
+``load`` of such an artifact needs an initialised group of that shape.
+Graphs are off on a mesh.
 """
 
 import io
@@ -72,6 +82,8 @@ from video_learning_tpu_torch.data.captions import trim_at_eos
 from video_learning_tpu_torch.models.pipeline import Model
 from video_learning_tpu_torch.ops.preprocess import (make_preprocessor,
                                                      supports_device_path)
+from video_learning_tpu_torch.parallel import mesh as mesh_mod
+from video_learning_tpu_torch.parallel import sharding
 from video_learning_tpu_torch.utils import error, resolve_device
 from video_learning_tpu_torch.val import ForwardGraphs, serving_forward
 
@@ -187,12 +199,21 @@ class ServingModule:
     ``calib_feed``.  ``ema`` (whether ``params`` are EMA weights) and
     ``run_id`` (the run they come from) are recorded in the meta.
     ``graphs`` (default: on for a CUDA device) runs every bucket as a
-    CUDA graph replay."""
+    CUDA graph replay.  ``mesh`` serves over a mesh of ranks (module
+    docstring), where ``graphs=True`` raises."""
 
     def __init__(self, model, params, batch_items=8, device="cuda",
                  quantize=None, calib_feed=None, act_ranges=None,
-                 ema=False, run_id=None, graphs=None):
+                 ema=False, run_id=None, graphs=None, mesh=None):
         self.device = resolve_device(device)
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
+        if self.mesh is not None:
+            if graphs:
+                error("ServingModule: graphs=True on a mesh of %d ranks: "
+                      "gloo collectives run on the host, which a CUDA "
+                      "graph cannot capture (graphs=False)"
+                      % self.mesh.size)
+            graphs = False
         use = self.device.type == "cuda" if graphs is None else bool(graphs)
         if use and self.device.type != "cuda":
             error("ServingModule: graphs=True needs a CUDA device")
@@ -258,7 +279,17 @@ class ServingModule:
             "run_id": None if run_id is None else str(run_id),
             "model": model_spec(model.settings),
         }
-        self._params = self.params
+        if self.mesh is not None:
+            self.meta["mesh"] = self.mesh.shape
+            for spec in inputs:
+                for b in self.buckets:
+                    rows = spec["shape"][0] // self.batch_items * b
+                    if rows % self.mesh.data:
+                        error("Bucket %d gives %d input rows, not divisible "
+                              "by the mesh data axis (%d); choose bucket "
+                              "sizes that shard evenly"
+                              % (b, rows, self.mesh.data))
+        self._params = self._local_params = self._slices(self.params)
         if self.quantize == "int8_static":
             if act_ranges is None:
                 if calib_feed is None:
@@ -270,8 +301,16 @@ class ServingModule:
                           for p, t in act_ranges.items()}
             self.meta["act_ranges"] = act_ranges
         if self.quantize:
-            self._params = model.quantize_params(self.params,
+            self._params = model.quantize_params(self._local_params,
                                                  act_ranges=act_ranges)
+
+    def _slices(self, params):
+        """This rank's slices of the whole tree ``params`` on a mesh with
+        a model axis; the tree itself otherwise."""
+        if self.mesh is None or self.mesh.model == 1:
+            return params
+        return sharding.shard_tree(params, self.mesh,
+                                   self.model.sharded_leaves(self.mesh.model))
 
     def _input_tensor(self, a, spec):
         dtype = _TORCH_DTYPES[spec["dtype"]]
@@ -309,6 +348,9 @@ class ServingModule:
         tensors; a captioner decodes.  A graph replay when graphs are on,
         but for the calibration forward (``calib_taps``)."""
         decode = self.model.caption_dataset is not None
+        if self.mesh is not None:
+            return serving_forward(self.model, self._pre, params, feed,
+                                   decode=decode, mesh=self.mesh, **kw)
         if self.graphs is None or "calib_taps" in kw:
             return serving_forward(self.model, self._pre, params, feed,
                                    decode=decode, **kw)
@@ -321,8 +363,8 @@ class ServingModule:
         tensors, _ = self._tensors(arrays)
         taps = {}
         self._forward({s["name"]: t for s, t in
-                       zip(self.meta["inputs"], tensors)}, self.params,
-                      calib_taps=taps)
+                       zip(self.meta["inputs"], tensors)},
+                      self._local_params, calib_taps=taps)
         if not taps:
             error("int8_static calibration collected no activation "
                   "ranges — no pipeline has an int8-capable frame "
@@ -333,7 +375,8 @@ class ServingModule:
         """Logits (float32 numpy), or a captioner's (items, T) int32 word
         indices, for the items in ``arrays``; each array is numpy or a
         tensor, with a leading dim up to the largest bucket's.  The call
-        runs at the smallest bucket that holds it."""
+        runs at the smallest bucket that holds it.  On a mesh every rank
+        passes the whole batch and gets the whole result."""
         tensors, frac = self._tensors(arrays)
         cap = self.batch_items
         bucket = next(b for b in self.buckets if b + 1e-9 >= frac * cap)
@@ -345,7 +388,11 @@ class ServingModule:
                 t = torch.cat([t, t.new_zeros((rows - t.shape[0],)
                                               + tuple(t.shape[1:]))])
             feed[spec["name"]] = t
+        if self.mesh is not None:
+            feed = {k: self.mesh.data_rows(t) for k, t in feed.items()}
         out = self._forward(feed, self._params, quantize=self.quantize)
+        if self.mesh is not None:
+            out = self.mesh.data_gather(out, 0)
         if self.model.caption_dataset is not None:
             out = out.to(torch.int32).cpu().numpy()
         else:
@@ -405,7 +452,10 @@ class ServingModule:
 
 def load(path, device="cuda"):
     """Rebuild a ServingModule from an artifact written by ``save``: its
-    buckets, and its quantize mode with the stored activation ranges."""
+    buckets, and its quantize mode with the stored activation ranges.
+    An artifact with a ``mesh`` serves over a mesh of that shape, which
+    needs an initialised torch.distributed group of as many ranks, each
+    of which loads it."""
     device = resolve_device(device)
     with zipfile.ZipFile(path) as z:
         meta = json.loads(z.read(_META_NAME).decode("utf-8"))
@@ -420,6 +470,17 @@ def load(path, device="cuda"):
     if meta.get("format") != FORMAT:
         error("%s is not a %s serving artifact (format %r)"
               % (path, FORMAT, meta.get("format")))
+    mesh = None
+    if meta.get("mesh"):
+        shape = meta["mesh"]
+        need = int(shape["data"]) * int(shape["model"])
+        size = mesh_mod.world()[0]
+        if size != need:
+            error("Artifact was exported for a %dx%d device mesh; only %d "
+                  "devices visible (the ranks of this process's "
+                  "torch.distributed group; load it in a group of %d)"
+                  % (shape["data"], shape["model"], size, need))
+        mesh = mesh_mod.make_mesh(shape)
     model = Model(settings_from_spec(meta["model"], embeddings))
     module = ServingModule(model, unflatten_tree(from_jax_flat(flat, device)),
                            batch_items=meta.get("buckets",
@@ -427,7 +488,7 @@ def load(path, device="cuda"):
                            device=device, quantize=meta.get("quantize"),
                            act_ranges=meta.get("act_ranges"),
                            ema=meta.get("ema", False),
-                           run_id=meta.get("run_id"))
+                           run_id=meta.get("run_id"), mesh=mesh)
     if module.meta["inputs"] != meta["inputs"]:
         error("Artifact inputs %s do not match the rebuilt model's %s"
               % (meta["inputs"], module.meta["inputs"]))

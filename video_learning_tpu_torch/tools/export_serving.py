@@ -35,8 +35,15 @@ writes JPEG; their shapes alone fix the signature, but an
 where JAX's come from JPEG-decoded ones.  Validate such scales with
 ``tools/infer --int8-static`` on representative media.
 
-Not ported: ``--mesh`` (a multi-device artifact needs the multi-GPU port)
-and ``--platforms`` (JAX lowering targets); both are refused.
+``--mesh data=N[,model=M]`` exports inside a torch.distributed group of
+N x M ranks (start every rank with ``python -m torch.distributed.run
+--nproc-per-node N*M -m video_learning_tpu_torch.tools.export_serving
+...``): the run config's ``mesh_shape`` is replaced by it, every rank
+builds the module over that mesh, a bucket whose input rows the data
+axis does not divide is refused, the meta records ``mesh`` and global
+rank 0 alone writes the artifact, which ``serving.load`` serves in a
+group of the same shape.  ``--platforms`` (JAX lowering targets) is
+refused.
 """
 
 import argparse
@@ -46,6 +53,7 @@ import tempfile
 
 import numpy as np
 
+from video_learning_tpu_torch.parallel import mesh as mesh_mod
 from video_learning_tpu_torch.serving import load
 from video_learning_tpu_torch.utils import (ensure_console_logging, error,
                                             info, warning)
@@ -96,7 +104,9 @@ def export(config_file, out, checkpoint="latest", batch_items=None,
     """Export the serving module of a run config and checkpoint to
     ``out``; returns its meta.  ``batch_items`` is a batch size in items
     or a list of them (buckets: each call runs at the smallest that
-    holds it).  Runs on ``device``, the GPU unless given "cpu"."""
+    holds it).  Runs on ``device``, the GPU unless given "cpu".
+    ``mesh_shape`` ({"data": N, "model": M}) exports over a mesh of
+    ranks (module docstring); every rank calls ``export``."""
     from video_learning_tpu_torch.batching import BatchGeometry
     from video_learning_tpu_torch.config import load_document
     from video_learning_tpu_torch.serving import ServingModule, serving_model
@@ -106,8 +116,19 @@ def export(config_file, out, checkpoint="latest", batch_items=None,
                                                       next_val_feed)
 
     if mesh_shape:
-        error("Multi-device export (--mesh) is not ported: the port runs "
-              "on one GPU; export without --mesh")
+        mesh_shape = {k: int(v) for k, v in dict(mesh_shape).items()}
+        need = mesh_shape.get("data", 1) * mesh_shape.get("model", 1)
+        size, rank = mesh_mod.world()
+        if need != size:
+            error("--mesh %s exports over a torch.distributed group of %d "
+                  "ranks, but this process is in a world of %d: start the "
+                  "ranks with python -m torch.distributed.run "
+                  "--nproc-per-node %d" % (mesh_shape, need, size, need))
+        if need == 1:
+            mesh_shape = None
+        elif workdir is not None:
+            # every rank packs its own signature batch
+            workdir = os.path.join(workdir, "rank%d" % rank)
     if platforms:
         error("--platforms names JAX lowering targets; the port's "
               "artifact holds parameters and a model spec and runs on "
@@ -136,7 +157,8 @@ def export(config_file, out, checkpoint="latest", batch_items=None,
             build_serving_context(config_file, media, checkpoint,
                                   fpc, cpv, workdir,
                                   batch_size=buckets[-1], int8=int8,
-                                  use_ema=use_ema, device=device)
+                                  use_ema=use_ema, device=device,
+                                  mesh_shape=mesh_shape)
         is_caption = model.caption_dataset is not None
         quantize = settings.val.quantize
         if int8 == "static":
@@ -158,14 +180,17 @@ def export(config_file, out, checkpoint="latest", batch_items=None,
             quantize=quantize,
             act_ranges=val.act_ranges if quantize == "int8_static"
             else None,
-            ema=settings.serving_ema, run_id=settings.run_id)
+            ema=settings.serving_ema, run_id=settings.run_id,
+            mesh=val.mesh)
         got = [(i["name"], tuple(i["shape"]), i["dtype"])
                for i in module.meta["inputs"]]
         want = [(n, tuple(s[0]), s[1]) for n, s in zip(names, specs)]
         if got != want:
             error("The serving module's inputs %s differ from the "
                   "signature batch's %s" % (got, want))
-        module.save(out)
+        if mesh_mod.is_primary():
+            module.save(out)
+        val.mesh.barrier()
         info("Exported serving artifact: %s (%.1f MB, buckets=%s, "
              "inputs=%s, quantize=%s, ema=%s)"
              % (out, os.path.getsize(out) / 1e6, buckets, names, quantize,
@@ -203,8 +228,9 @@ def main(argv=None):
     parser.add_argument("--platforms",
                         help="JAX lowering targets: refused by the port")
     parser.add_argument("--mesh",
-                        help="a multi-device artifact: not ported, "
-                             "refused")
+                        help="export a multi-device artifact, e.g. "
+                             "'data=4,model=2', inside a torch.distributed "
+                             "group of that many ranks")
     parser.add_argument("--workdir",
                         help="keep the signature-batch workdir here")
     parser.add_argument("--selftest", action="store_true",
@@ -220,14 +246,23 @@ def main(argv=None):
     except ValueError:
         error("--batch-items expects an int or comma list; got %r"
               % args.batch_items)
+    mesh_shape = None
+    if args.mesh:
+        try:
+            mesh_shape = {k.strip(): int(v) for k, v in
+                          (kv.split("=") for kv in args.mesh.split(","))}
+        except ValueError:
+            error("--mesh expects 'data=N[,model=M]'; got %r" % args.mesh)
+    device = (mesh_mod.init_distributed(args.device) if mesh_shape
+              else args.device)
     int8 = "static" if args.int8_static else args.int8
     meta = export(args.config, args.out, checkpoint=args.checkpoint,
                   batch_items=batch_items, fpc=args.fpc, cpv=args.cpv,
                   workdir=args.workdir, int8=int8, use_ema=args.ema,
-                  device=args.device, platforms=args.platforms,
-                  mesh_shape=args.mesh)
+                  device=device, platforms=args.platforms,
+                  mesh_shape=mesh_shape)
     if args.selftest:
-        out = load(args.out, device=args.device).warmup()
+        out = load(args.out, device=device).warmup()
         info("Selftest OK: output %s %s" % (out.shape, out.dtype))
     return meta
 

@@ -181,14 +181,15 @@ def _softmax(logits):
 def build_serving_context(config_file, media, checkpoint="latest",
                           fpc=None, cpv=None, workdir=None,
                           batch_size=None, int8=False, use_ema=False,
-                          device="cuda"):
+                          device="cuda", mesh_shape=None):
     """Pack ``media`` and build the serving stack of a training run
     config on ``device`` (the GPU unless given "cpu"): (settings, feeder,
     model, restored params, Validation, media kind).  Shared by the
     inference CLI and the exporter (``tools/export_serving``), so neither
     can drift from the pack -> feed -> restore -> forward chain.  The
     caller owns ``workdir`` (it must exist).  ``settings.serving_ema``
-    records whether EMA weights were restored."""
+    records whether EMA weights were restored.  ``mesh_shape`` replaces
+    the run config's (the exporter's ``--mesh``)."""
     from video_learning_tpu_torch import checkpoint as ckpt_mod
     from video_learning_tpu_torch.config import Settings, load_documents
     from video_learning_tpu_torch.data import records
@@ -264,6 +265,8 @@ def build_serving_context(config_file, media, checkpoint="latest",
         val_cfg["clip_fusion"] = ["defs.fusion_type.late",
                                   "defs.fusion_method.avg"]
     run_cfg["val"] = val_cfg
+    if mesh_shape:
+        run_cfg["mesh_shape"] = dict(mesh_shape)
     docs = dict(docs)
     docs["run"] = run_cfg
     infer_cfg = os.path.join(workdir, "infer_run.json")

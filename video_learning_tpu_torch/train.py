@@ -36,7 +36,20 @@ tail gets ``label_mask`` zeros) and moved to the device by
 ``run_step`` skips that work for a feed so prepared.  The run config's
 ``watch_tensors`` add the mean, std (over N), min and max of each
 watched parameter and its gradient to the metrics, computed in float32
-on the device.  Not ported: the mesh and sharding code.
+on the device.
+On a mesh (``mesh``, or the run config's ``mesh_shape`` in a group of
+more than one rank; ``parallel/mesh.py``) each rank keeps its slices of
+the leaves the JAX rule splits over the model axis, and their moments
+and EMA alike, and feeds its own rows (``batch_size`` is per data rank,
+as each JAX process feeds its local rows).  The step computes the
+gradient of the rank's masked loss sum, adds the gradients, the loss
+sums, the mask counts and the correct counts over the data group in one
+all-reduce, and divides by the global count: a step on an (N, M) mesh
+is the single-device step on the global batch up to float
+reassociation.  The global-norm clip counts a split gradient once (its
+squares summed over the model group).  ``state_dict`` gathers whole
+tensors and ``load_state_dict`` slices them, so checkpoints are those of
+one process.  Graphs are off on a mesh (see ``Train``).
 Dropout draws on the parameters' device from one persistent generator
 per micro-batch and pipeline, re-seeded before every step from
 ``fold_in(seed + 1, global_step)`` (then ``fold_in`` of the micro-batch
@@ -59,6 +72,8 @@ from video_learning_tpu_torch.checkpoint import flatten_tree, unflatten_tree
 from video_learning_tpu_torch.defs import defs
 from video_learning_tpu_torch.ops.preprocess import (make_preprocessor,
                                                      supports_device_path)
+from video_learning_tpu_torch.parallel import mesh as mesh_mod
+from video_learning_tpu_torch.parallel import sharding
 from video_learning_tpu_torch.utils import (error, fold_in, info,
                                             resolve_device, warning)
 
@@ -139,7 +154,7 @@ def precompute_learning_rates(settings, num_batches):
     for i in range(min(warmup, total)):
         lr_per_batch[i] = lr_per_batch[i] * (i + 1) / warmup
 
-    if settings.run_folder:
+    if settings.run_folder and mesh_mod.is_primary():
         sched_file = os.path.join(
             settings.run_folder, settings.run_id + "_lr_decay_schedule.txt")
         with open(sched_file, "w") as f:
@@ -156,13 +171,17 @@ def precompute_learning_rates(settings, num_batches):
 
 
 # ------------------------------------------------------------- optimizer
-def global_norm(tensors):
-    """sqrt of the sum of squares of every element (``optax.global_norm``),
-    summed tensor by tensor in order."""
+def _sum_squares(tensors):
     total = 0.0
     for t in tensors:
         total = total + t.to(torch.float32).square().sum()
-    return torch.sqrt(torch.as_tensor(total, dtype=torch.float32))
+    return torch.as_tensor(total, dtype=torch.float32)
+
+
+def global_norm(tensors):
+    """sqrt of the sum of squares of every element (``optax.global_norm``),
+    summed tensor by tensor in order."""
+    return torch.sqrt(_sum_squares(tensors))
 
 
 class _Tier:
@@ -243,6 +262,8 @@ class Optimizer:
                                 if clip_grads else None)
         wd = float(getattr(train, "weight_decay", 0.0) or 0.0)
         self.labels = labels
+        # on a mesh: {name: split dim} of the gradients held in slices
+        self.mesh, self.split = None, {}
         if labels is None:
             self.tiers = {"regular": _Tier(train.optimizer, lr_array, None,
                                            wd)}
@@ -260,6 +281,18 @@ class Optimizer:
             out[self.labels[n]][n] = v
         return out
 
+    def norm(self, grads):
+        """The global norm of ``grads`` ({name: tensor}); on a mesh a
+        split gradient's squares are summed over the model group, so
+        that each element counts once, and a replicated one counts once
+        too."""
+        if not self.split:
+            return global_norm(grads.values())
+        ss = self.mesh.model_sum(_sum_squares(
+            g for n, g in grads.items() if n in self.split))
+        return torch.sqrt(ss + _sum_squares(
+            g for n, g in grads.items() if n not in self.split))
+
     def init(self, params):
         """The state of every tier, on the parameters' device."""
         device = next(iter(params.values())).device
@@ -272,14 +305,17 @@ class Optimizer:
         place.  Nothing here reads a value back to the host: the clip is
         optax's select (``torch.where``), not a branch."""
         if self.clip_norm is not None:
-            g_norm = global_norm(grads.values())
+            g_norm = self.norm(grads)
             keep = g_norm < self.clip_norm
             grads = {n: torch.where(keep, g, (g / g_norm) * self.clip_norm)
                      for n, g in grads.items()}
         if self.clip_per_tensor is not None:
             clipped = {}
             for n, g in grads.items():
-                norm = torch.sqrt(g.square().sum())
+                ss = g.square().sum()
+                if n in self.split:
+                    ss = self.mesh.model_sum(ss)
+                norm = torch.sqrt(ss)
                 scale = torch.clamp(self.clip_per_tensor /
                                     torch.clamp(norm, min=1e-12), max=1.0)
                 clipped[n] = g * scale
@@ -335,7 +371,12 @@ class Train:
     ``graphs`` (default: on for a CUDA device) runs the step and
     ``compile_scan_steps`` as CUDA graph replays after ``WARMUP_STEPS``
     eager steps at each feed geometry; ``graphs=False`` keeps the eager
-    step.  The CPU has no graphs.
+    step.  The CPU has no graphs.  ``mesh`` (default: ``make_mesh`` of
+    ``settings.mesh_shape``, a world of one outside a process group)
+    trains on a (data x model) mesh (module docstring); there graphs
+    default to off and ``graphs=True`` raises: gloo's collectives run
+    on the host, which a CUDA graph cannot capture, and graphs over an
+    NCCL group have not been run on a machine with two or more cards.
 
     Every tensor of the state (parameters, moments, step counts, EMA,
     the device step counter) is created once and then only written in
@@ -343,10 +384,22 @@ class Train:
     ``load_state_dict`` copies into them, and nothing may rebind them."""
 
     def __init__(self, settings, feeder, model, seed=0, params=None,
-                 device="cuda", conv1_dw="shifted", graphs=None):
+                 device="cuda", conv1_dw="shifted", graphs=None,
+                 mesh=None):
         if not settings.train:
             error("Train needs settings.train")
         self.device = resolve_device(device)
+        self.mesh = mesh if mesh is not None else mesh_mod.make_mesh(
+            getattr(settings, "mesh_shape", None))
+        if self.mesh.size > 1:
+            if graphs:
+                error("Train: graphs=True on a mesh of %d ranks: gloo "
+                      "collectives run on the host, which a CUDA graph "
+                      "cannot capture, and graphs over an NCCL group have "
+                      "not been verified on a machine with two or more "
+                      "cards; the mesh runs the eager step (graphs=False)"
+                      % self.mesh.size)
+            graphs = False
         self.graphs = (self.device.type == "cuda" if graphs is None
                        else bool(graphs))
         if self.graphs and self.device.type != "cuda":
@@ -379,14 +432,19 @@ class Train:
         if sorted(flat) != sorted(flatten_tree(fresh)):
             error("Train: the parameter names differ from the model's: %s"
                   % sorted(set(flat) ^ set(flatten_tree(fresh))))
+        # {name: split dim} of the leaves this rank holds in slices
+        self._split = (model.sharded_leaves(self.mesh.model)
+                       if self.mesh.size > 1 else {})
         # float32 leaves that require gradients, in name order; the nested
         # tree the model reads holds the same tensors
-        self._flat = {n: flat[n].detach().to(self.device, torch.float32)
-                      .clone().requires_grad_(True) for n in sorted(flat)}
+        self._flat = {n: self._local(n, flat[n].detach().to(
+            self.device, torch.float32)).clone().requires_grad_(True)
+            for n in sorted(flat)}
         self.params = unflatten_tree(self._flat)
         _, modified = model.param_groups()
         self.tx = make_optimizer(settings, self.lr_array,
                                  make_label_tree(self._flat, modified))
+        self.tx.mesh, self.tx.split = self.mesh, self._split
         self.opt_state = self.tx.init(self._flat)
         self._ema_decay = float(getattr(settings.train, "ema_decay", 0.0)
                                 or 0.0)
@@ -425,6 +483,19 @@ class Train:
         self._global_step = int(value)
         self._step_t.fill_(self._global_step)
 
+    def _local(self, name, t):
+        """This rank's slice of the whole tensor ``t`` of leaf ``name``."""
+        if name not in self._split:
+            return t
+        return self.mesh.model_slice(t, self._split[name])
+
+    def _whole(self, name, t):
+        """The whole tensor of leaf ``name`` from this rank's slice
+        ``t`` (collective over the model group)."""
+        if name not in self._split:
+            return t
+        return self.mesh.model_gather(t, self._split[name])
+
     def _watch_list(self, patterns):
         """The flat parameter names ``logging.watch_tensors`` matches (by
         ``re.search``), sorted; a pattern that matches none is warned
@@ -446,7 +517,8 @@ class Train:
         rows = []
         for source in (self._flat, grads):
             for name in self._watched:
-                x = source[name].detach().to(torch.float32)
+                x = self._whole(name, source[name].detach()
+                                .to(torch.float32))
                 rows.append(torch.stack([x.mean(), x.std(correction=0),
                                          x.min(), x.max()]))
         if not rows:
@@ -511,7 +583,7 @@ class Train:
             logits = self.model.apply(
                 self.params, feed, train=True,
                 dropout_generator=generators,
-                conv1_dw=self.conv1_dw)
+                conv1_dw=self.conv1_dw, mesh=self.mesh)
         return logits, feed["labels"], feed.get("label_mask")
 
     def _grad(self, loss):
@@ -538,7 +610,10 @@ class Train:
         """accum_steps > 1: every feed array's leading dim is split into
         equal micro-batches; the gradients of the masked loss sums are
         added up and divided by the total mask count at the end, which
-        equals the full-batch masked mean up to float reassociation."""
+        equals the full-batch masked mean up to float reassociation.  On
+        a data axis (with any ``accum_steps``) the sums are added over the
+        data group before the division, so the count is the global
+        batch's."""
         accum = self._accum
         grads, loss_sum, count, correct = None, 0.0, 0.0, 0.0
         for i in range(accum):
@@ -559,10 +634,30 @@ class Train:
             count = count + mask.sum()
             correct = correct + (_correct(logits.detach(), labels)
                                  * mask).sum()
+        if self.mesh.data > 1:
+            grads, loss_sum, count, correct = self._data_sum(
+                grads, loss_sum, count, correct)
         denom = count.clamp(min=1.0)
         grads = {n: (g.to(torch.float32) / denom).to(g.dtype)
                  for n, g in grads.items()}
         return grads, loss_sum / denom, correct / denom
+
+    def _data_sum(self, grads, loss_sum, count, correct):
+        """The gradients, loss sum, mask count and correct count added
+        over the data group, in one all-reduce of one flat float32
+        buffer."""
+        names = list(grads)
+        flat = torch.cat([grads[n].reshape(-1).to(torch.float32)
+                          for n in names] +
+                         [torch.stack([loss_sum, count, correct])
+                          .to(torch.float32)])
+        self.mesh.data_sum(flat)
+        out, i = {}, 0
+        for n in names:
+            g = grads[n]
+            out[n] = flat[i:i + g.numel()].reshape(g.shape).to(g.dtype)
+            i += g.numel()
+        return out, flat[i], flat[i + 1], flat[i + 2]
 
     # ------------------------------------------------------------- feeds
     def prepare_device_feed(self, feed, batches=None):
@@ -620,6 +715,10 @@ class Train:
         structure, not its bits."""
         for m, gens in enumerate(self._dropout_gens):
             base = seed if self._accum == 1 else fold_in(seed, m)
+            if self.mesh.data > 1:
+                # each data rank draws its own rows' masks; the ranks of
+                # one model group hold the same rows and draw the same
+                base = fold_in(base, self.mesh.data_index)
             for i, gen in enumerate(gens):
                 gen.manual_seed(fold_in(base, i))
 
@@ -628,11 +727,11 @@ class Train:
         no value read back to the host: returns the metrics (loss, lr,
         grad_norm, accuracy, then the watched statistics) as one float32
         vector and advances every state tensor in place."""
-        if self._accum > 1:
+        if self._accum > 1 or self.mesh.data > 1:
             grads, loss, acc = self._step_micro_sums(feed)
         else:
             grads, loss, acc = self._step_mean(feed)
-        grad_norm = global_norm(grads.values())
+        grad_norm = self.tx.norm(grads)
         watched = self._watch_stats(grads)
         updates = self.tx.update(grads, self.opt_state, self._flat)
         with torch.no_grad():
@@ -689,8 +788,8 @@ class Train:
         """``num_steps`` optimizer steps on one feed as one program (JAX
         ``Train.compile_scan_steps``): on the card with graphs on, one
         CUDA graph (the first call at a feed geometry runs the steps
-        eagerly and then captures them, later calls replay); on the CPU
-        or with graphs off, an eager loop.  Returns ``many(feed)`` ->
+        eagerly and then captures them, later calls replay); on the CPU,
+        on a mesh or with graphs off, an eager loop.  Returns ``many(feed)`` ->
         {metric: (num_steps,) float32 array}; each call advances
         ``global_step`` by ``num_steps``, and each step's lr metric is the
         schedule's at its own step.
@@ -724,32 +823,36 @@ class Train:
     def eval_params(self):
         """Parameters an evaluation should use: the EMA weights when
         ema_decay is on and ``val.use_ema`` asks for them, else the live
-        ones (detached from the graph)."""
+        ones (detached from the graph); whole tensors on a mesh
+        (collective)."""
         source = self._flat
         if self.ema is not None and self.settings.val is not None and \
                 getattr(self.settings.val, "use_ema", False):
             source = self.ema
-        return unflatten_tree({n: p.detach() for n, p in source.items()})
+        return unflatten_tree(sharding.gather_params(
+            {n: p.detach() for n, p in source.items()}, self.mesh,
+            self._split))
 
     def state_dict(self):
         """{"params", "opt_state", "ema_params" (with the EMA),
         "global_step"}: flat {name: CPU tensor} dicts in the port's
         names and layouts (optimizer slots as "<tier>/<slot>/<param>"),
         each tensor a copy, so later steps leave a snapshot being
-        written alone."""
-        def snap(t):
-            return t.detach().to("cpu", copy=True)
+        written alone.  On a mesh the tensors are whole (collective: every
+        rank calls it), as one process would hold them."""
+        def snap(t, name=None):
+            return self._whole(name, t.detach()).to("cpu", copy=True)
 
         opt = {}
         for tier, st in self.opt_state.items():
             opt[tier + "/count"] = snap(torch.as_tensor(st["count"]))
             for slot in ("mu", "nu"):
                 for n, t in st.get(slot, {}).items():
-                    opt["%s/%s/%s" % (tier, slot, n)] = snap(t)
-        out = {"params": {n: snap(p) for n, p in self._flat.items()},
+                    opt["%s/%s/%s" % (tier, slot, n)] = snap(t, n)
+        out = {"params": {n: snap(p, n) for n, p in self._flat.items()},
                "opt_state": opt, defs.names.global_step: self.global_step}
         if self.ema is not None:
-            out["ema_params"] = {n: snap(e) for n, e in self.ema.items()}
+            out["ema_params"] = {n: snap(e, n) for n, e in self.ema.items()}
         return out
 
     def load_state_dict(self, state, restored_names=None):
@@ -759,11 +862,12 @@ class Train:
         the file; when a checkpoint was restored and none of them is an
         ``ema_params`` leaf, the EMA starts at the restored params (the
         JAX ``Train.load_state_dict``).  Optimizer slots the state lacks
-        keep their values."""
+        keep their values.  The tensors are whole; on a mesh each rank
+        takes its slices."""
         opt = state.get("opt_state") or {}
         with torch.no_grad():
             for n, p in self._flat.items():
-                p.copy_(state["params"][n])
+                p.copy_(self._local(n, state["params"][n]))
             for tier, st in self.opt_state.items():
                 if tier + "/count" in opt:
                     st["count"].fill_(int(opt[tier + "/count"]))
@@ -771,7 +875,7 @@ class Train:
                     for n, t in st.get(slot, {}).items():
                         key = "%s/%s/%s" % (tier, slot, n)
                         if key in opt:
-                            t.copy_(opt[key])
+                            t.copy_(self._local(n, opt[key]))
             if self.ema is not None:
                 source = state.get("ema_params")
                 if restored_names and not any(
@@ -779,9 +883,14 @@ class Train:
                     info("Checkpoint carries no EMA state; seeding the EMA "
                          "at the restored params")
                     source = self._flat
-                if source is not None:
+                if source is None:
+                    pass
+                elif source is self._flat:
                     for n, e in self.ema.items():
                         e.copy_(source[n])
+                else:
+                    for n, e in self.ema.items():
+                        e.copy_(self._local(n, source[n]))
         gs = state.get(defs.names.global_step)
         if gs is not None:
             self.global_step = int(gs)

@@ -26,8 +26,21 @@ artifact cannot drift apart.  On the card it runs as CUDA graph replays
 ``jax.jit(forward)`` and ``jax.jit(decode)``; ``graphs=False`` keeps it
 eager.
 
-Not ported: the mesh and ``_local_rows`` (multi-GPU, ROADMAP Queue 1,
-item 6).
+On a mesh (``mesh``, or the run config's ``mesh_shape`` in a group of
+more than one rank) every rank evaluates the feed it was given: its own
+rows.  That is the port's counterpart of the JAX ``_local_rows``: JAX
+assembles the processes' local rows into one global batch, runs it and
+hands each process its rows back, while here each rank computes only its
+rows, so no gather of the outputs is needed.  (Validation datasets are
+not host-sharded, so in a run every rank evaluates the whole set, as
+every JAX host does.)  The whole parameter tree a caller passes is cut
+into this rank's slices once per parameter content, as the JAX cache
+places it once; the model-axis collectives run inside
+``Model.apply(mesh=...)``, and the int8 activation ranges, dynamic and
+calibrated, are the MAX over the data group, the global batch's.  Only
+global rank 0 writes the chunk files and the caption JSON; the others
+keep their rows in memory, so every rank computes the same accuracies.
+Graphs are off on a mesh, as in ``Train``.
 """
 
 import json
@@ -41,6 +54,8 @@ from video_learning_tpu_torch import graphs as graphs_mod
 from video_learning_tpu_torch.defs import defs
 from video_learning_tpu_torch.ops.preprocess import (make_preprocessor,
                                                      supports_device_path)
+from video_learning_tpu_torch.parallel import mesh as mesh_mod
+from video_learning_tpu_torch.parallel import sharding
 from video_learning_tpu_torch.utils import (debug, duplicates, error, info,
                                             resolve_device, warning)
 
@@ -103,13 +118,30 @@ class Validation:
     default), or with ``model=None`` the host-side accumulation and
     scoring alone.  ``graphs`` (default: on for a CUDA device) runs the
     forward as ``ForwardGraphs`` replays; ``graphs=False`` keeps it
-    eager."""
+    eager.  ``mesh`` (default: ``make_mesh`` of ``settings.mesh_shape``)
+    evaluates this rank's rows on a mesh (module docstring), where
+    ``graphs=True`` raises as in ``Train``."""
 
-    def __init__(self, settings, model=None, device="cuda", graphs=None):
+    def __init__(self, settings, model=None, device="cuda", graphs=None,
+                 mesh=None):
+        self._is_main_process = mesh_mod.is_primary()
         if not settings.val:
             return
         self.settings = settings
         self.model = model
+        self.mesh = None
+        if model is not None:
+            self.mesh = mesh if mesh is not None else mesh_mod.make_mesh(
+                getattr(settings, "mesh_shape", None))
+            if self.mesh.size > 1:
+                if graphs:
+                    error("Validation: graphs=True on a mesh of %d ranks: "
+                          "gloo collectives run on the host, which a CUDA "
+                          "graph cannot capture, and graphs over an NCCL "
+                          "group have not been verified on a machine with "
+                          "two or more cards (graphs=False)"
+                          % self.mesh.size)
+                graphs = False
         # only the forward needs a device: accumulation and scoring are
         # host numpy
         self.device = resolve_device(device) if model is not None else None
@@ -162,7 +194,7 @@ class Validation:
         taps = {}
         serving_forward(self.model, self._preprocessors, params,
                         self._on_device(feed), decode=decode,
-                        calib_taps=taps)
+                        calib_taps=taps, mesh=self.mesh)
         if not taps:
             error("int8_static calibration collected no activation "
                   "ranges — no pipeline has an int8-capable frame "
@@ -171,6 +203,20 @@ class Validation:
                 for p, t in taps.items()}
         info("int8_static calibration ranges: %s" % taps)
         return taps
+
+    def _placed(self, params):
+        """This rank's slices of a whole parameter tree, cut once per
+        tree (compared by identity with its first leaf, both held, as
+        ``_maybe_quantize`` compares them); the tree itself off a mesh
+        or on a model axis of one."""
+        if self.mesh is None or self.mesh.model == 1:
+            return params
+        leaf0 = _first_leaf(params)
+        if params is not self._src_params or leaf0 is not self._src_leaf0:
+            self._placed_params = sharding.shard_tree(
+                params, self.mesh, self.model.sharded_leaves(self.mesh.model))
+            self._src_params, self._src_leaf0 = params, leaf0
+        return self._placed_params
 
     def _maybe_quantize(self, params, feed=None, decode=False):
         """The frame encoders' weights quantized once per parameter tree
@@ -212,7 +258,8 @@ class Validation:
         device, ``names[i]`` is the feed key of positional input ``i``
         and ``specs[i]`` its ``(shape, dtype name)``."""
         quantize = getattr(self.settings.val, "quantize", None)
-        params = self._maybe_quantize(params, sample_feed, decode)
+        params = self._maybe_quantize(self._placed(params), sample_feed,
+                                      decode)
         names = []
         for key, itype, _ in self.model.required_input:
             if itype != defs.net_input.visual:
@@ -235,9 +282,11 @@ class Validation:
 
     def run_forward(self, params, feed, decode=False):
         """Logits (float32 numpy) of a padded feed, or a captioner's
-        decoded (items, T) int32 word indices with ``decode``."""
+        decoded (items, T) int32 word indices with ``decode``.  On a mesh
+        ``params`` is the whole tree and ``feed`` this rank's rows, and
+        the rows returned are this rank's (module docstring)."""
         quantize = getattr(self.settings.val, "quantize", None)
-        params = self._maybe_quantize(params, feed, decode)
+        params = self._maybe_quantize(self._placed(params), feed, decode)
         out = self._forward(params, self._on_device(feed), decode, quantize)
         out = out.to(torch.int32 if decode else torch.float32)
         return out.cpu().numpy()
@@ -245,7 +294,8 @@ class Validation:
     def _forward(self, params, feed, decode, quantize):
         if self._graphs is None:
             return serving_forward(self.model, self._preprocessors, params,
-                                   feed, decode=decode, quantize=quantize)
+                                   feed, decode=decode, quantize=quantize,
+                                   mesh=self.mesh)
         return self._graphs(self.model, self._preprocessors, params, feed,
                             decode=decode, quantize=quantize)
 
@@ -327,7 +377,10 @@ class Validation:
         """Pickle the accumulated rows as a ``.part_N`` chunk once there
         are ``logits_save_interval`` of them (or all, at the end); a
         non-positive interval writes one ``.total`` at the end, None
-        writes nothing."""
+        writes nothing.  Only global rank 0 writes: the others keep their
+        rows in memory."""
+        if not self._is_main_process:
+            return
         if self.validation_logits_save_interval is None or \
                 len(self.item_logits) == 0:
             return
@@ -377,6 +430,9 @@ class Validation:
         self._q_src_leaf0 = None
         self._q_params = None
         self.act_ranges = None
+        self._src_params = None
+        self._src_leaf0 = None
+        self._placed_params = None
 
     def get_accuracy(self, k=1):
         """Accuracy over the saved chunks and the live rows; ``k`` > 1 is
@@ -427,10 +483,16 @@ class Validation:
         """Decoded rows (``caption_rows``, EOS-trimmed index lists, or
         the saved integer chunks) -> ``coco.results.json`` -> the COCO
         metrics, written to ``coco.results.json.eval.json``.  Returns the
-        scores, or None without a ground-truth file."""
+        scores, or None without a ground-truth file and on every rank but
+        global rank 0, which alone writes (every rank decoded the same
+        whole validation set)."""
         if settings.captioning.eval_type != defs.eval_type.coco:
             error("Unsupported eval type %s"
                   % settings.captioning.eval_type)
+        if not self._is_main_process:
+            info("Skipping the caption artifacts on rank %d"
+                 % mesh_mod.world()[1])
+            return None
         dataset = settings.feeder.get_dataset_by_tag(
             defs.dataset_tag.main)[0]
         ids_captions = []
