@@ -206,6 +206,47 @@ Phases (each raises on failure; nothing is caught and passed over):
    accuracy files and one .total of 32 rows), and a resume from
    ``latest`` whose steps continue the first run's.
 
+13. the remaining tools and audionet, last, in phase 8's folder before
+   it is removed, without the profiler (graph replays run unmetered;
+   captures still with the plain versions locked out), launches counted
+   by the wrappers with the plain versions locked out.
+   ``validate_pretrained`` on a synthesized 1000-class bvlc file exits 0
+   (manifest recorded), 0 (matched) and 1 for a modified file against
+   that manifest, each fixture forward launching its 2 LRN kernels; its
+   fc6 and fc7 features on the card within 1e-3 normwise of the CPU's
+   (float32, TF32 off).  ``profile_ablation`` at phase 5's width (128
+   clips x 16 frames of 240x320 uint8, crop 227, bf16), its stage rows
+   and its ``--per-layer`` rows: the JAX tool's rows and names, every
+   time finite and above 0, each row's kernel launches per call exact
+   (LRN rows lrn; forward+backward rows lrn_bwd, all in the vector
+   design, and conv1_dw_shifted; the LSTM row lstm_step), its approximate
+   step printed beside phase 5's.  ``run_task`` trains 2 epochs of 32
+   one-clip videos (16 a batch, phase 9's configuration, an lr decay)
+   and saves 2 checkpoints; over a val split of 8 videos x 2 clips in
+   float32 (TF32 off, cuDNN deterministic) each checkpoint's val phase
+   run directly, ``evaluate_multiple_checkpoints`` in process, with
+   ``--only 2``, ``--omit 2`` and ``--subprocess --only 1`` (a child
+   ``run_task`` with NVIDIA_TF32_OVERRIDE=0), and ``validate_checkpoints``
+   over a folder of one checkpoint give the same accuracies, and each
+   one-checkpoint evaluation's logits equal its direct run's (bit for
+   bit in this process, within 1e-5 of the logit scale in the child).
+   On the card's artifacts: ``inspect_checkpoint``; ``modify_checkpoint``
+   (rename, regex-rename, create), whose output restores in ``run_task``
+   with the original's logits; ``combine_logits`` of a val run's logits
+   with themselves gives its accuracy at every weight, as does
+   ``compute_evaluation_stats``, and ``view_logits_info`` counts its
+   rows; ``export_tfrecord`` of phase 10's caption image records frames
+   them in pure Python (no tensorflow there), each frame's CRC checked,
+   one record per ``.size`` item; ``lr_calc`` prints the schedule
+   ``Train`` wrote.  audionet's float32 logits on the card within 1e-4
+   normwise of the CPU's.  Cuts: the tools run on tens of videos, and
+   ``export_tfrecord`` on the caption records rather than the 236 MB
+   video pack (its pure-Python CRC32C frames a few MB/s).  Not run on
+   the card's machine: ``import_tfrecord`` (needs tensorflow),
+   ``split_video`` and the mp3 path of ``audio/spectrograms`` (need
+   ffmpeg), spectrogram PNGs (need PIL); each raises there, as the CPU
+   tests show.
+
 Phases 3-10 run the port's defaults, which on the card are graph
 replays: a program's first call at a shape runs eagerly and then
 captures it (a training step's second), later calls replay.  Every
@@ -231,6 +272,7 @@ import argparse
 import gc
 import glob
 import http.client
+import importlib.util
 import io
 import json
 import math
@@ -239,6 +281,7 @@ import random
 import re
 import resource
 import shutil
+import struct
 import subprocess
 import sys
 import tempfile
@@ -260,7 +303,7 @@ from video_learning_tpu_torch.defs import defs
 from video_learning_tpu_torch.flagship import (SERVING_IMGPROC, SERVING_MEAN,
                                                caption_feed,
                                                caption_flagship, flagship)
-from video_learning_tpu_torch.models import alexnet, layers
+from video_learning_tpu_torch.models import alexnet, audionet, layers
 from video_learning_tpu_torch.models import lstm as decode_mod
 from video_learning_tpu_torch.models import pipeline as pipeline_mod
 from video_learning_tpu_torch.models.pipeline import Model
@@ -271,12 +314,22 @@ from video_learning_tpu_torch.ops import lrn as lrn_mod
 from video_learning_tpu_torch.ops import lstm_step as lstm_mod
 from video_learning_tpu_torch.ops.preprocess import make_preprocessor
 from video_learning_tpu_torch.tools import check_serialized_data
+from video_learning_tpu_torch.tools import combine_logits
+from video_learning_tpu_torch.tools import compute_evaluation_stats
 from video_learning_tpu_torch.tools import compute_image_mean
+from video_learning_tpu_torch.tools import evaluate_multiple_checkpoints
+from video_learning_tpu_torch.tools import export_tfrecord
 from video_learning_tpu_torch.tools import export_serving as export_mod
 from video_learning_tpu_torch.tools import infer as infer_mod
+from video_learning_tpu_torch.tools import inspect_checkpoint, lr_calc
+from video_learning_tpu_torch.tools import modify_checkpoint
 from video_learning_tpu_torch.tools import process_annotations
 from video_learning_tpu_torch.tools import produce_vocab_embeddings
+from video_learning_tpu_torch.tools import profile_ablation
 from video_learning_tpu_torch.tools import serve as serve_mod
+from video_learning_tpu_torch.tools import validate_checkpoints
+from video_learning_tpu_torch.tools import validate_pretrained
+from video_learning_tpu_torch.tools import view_logits_info
 from video_learning_tpu_torch.train import WARMUP_STEPS, Train
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM bandwidth, the
@@ -2450,27 +2503,33 @@ CAPTION_IMAGES, CAPTION_BATCH = 64, 32
 CAPTION_WANT = {"lrn": 2, "lstm_step": CAPTION_T}
 
 
-def pack_val_videos(folder, seed):
-    """The val split: RUN_VAL_VIDEOS videos of RUN_VAL_CPV clips of FPC
-    240x320x3 uint8 frames and a label each, from one seeded numpy
-    stream, packed by the port's RecordWriter.  Returns its paths
-    file."""
-    base = os.path.join(folder, "videos.val")
+def pack_split(folder, name, videos, cpv, seed, prefix):
+    """``videos`` videos of ``cpv`` clips of FPC 240x320x3 uint8 frames
+    and a label each, from one seeded numpy stream, packed by the port's
+    RecordWriter as ``<folder>/<name>`` with its ``.size`` sidecar and a
+    paths file of ``<prefix><index> <label>`` lines.  Returns the paths
+    file (a dataset's ``data_path``)."""
+    base = os.path.join(folder, name)
     rng = np.random.default_rng(seed)
-    labels = rng.integers(0, CLASSES, RUN_VAL_VIDEOS)
+    labels = rng.integers(0, CLASSES, videos)
     with records.RecordWriter(base + ".tfrecord") as w:
-        for v in range(RUN_VAL_VIDEOS):
-            frames = rng.integers(0, 256, (RUN_VAL_CPV * FPC,) + RAW_HW
-                                  + (3,), np.uint8)
+        for v in range(videos):
+            frames = rng.integers(0, 256, (cpv * FPC,) + RAW_HW + (3,),
+                                  np.uint8)
             for frame in frames:
                 w.write(records.encode_image_example(frame, int(labels[v])))
-    records.write_size_file(RUN_VAL_VIDEOS, [RUN_VAL_CPV] * RUN_VAL_VIDEOS,
-                            base + ".tfrecord", defs.input_mode.video, 1,
-                            FPC)
+    records.write_size_file(videos, [cpv] * videos, base + ".tfrecord",
+                            defs.input_mode.video, 1, FPC)
     with open(base, "w") as f:
-        f.write("".join("val%04d %d\n" % (v, labels[v])
-                        for v in range(RUN_VAL_VIDEOS)))
+        f.write("".join("%s%04d %d\n" % (prefix, v, labels[v])
+                        for v in range(videos)))
     return base
+
+
+def pack_val_videos(folder, seed):
+    """The val split: RUN_VAL_VIDEOS videos of RUN_VAL_CPV clips."""
+    return pack_split(folder, "videos.val", RUN_VAL_VIDEOS, RUN_VAL_CPV,
+                      seed, "val")
 
 
 def run_config(folder, name, phase, train_path, val_path, val_items=None,
@@ -4587,6 +4646,440 @@ def phase_mesh(results, folder, train_path):
         raise AssertionError("phase 12: %s" % failures)
 
 
+# ------------------------------------------------------------ phase 13
+# the tools' run: tens of videos (the cut of phases 8-9's sets), 2 epochs
+# of 2 steps saving each epoch, so that there are 2 checkpoints
+TOOLS_TRAIN_VIDEOS, TOOLS_BATCH = 32, 16
+TOOLS_VAL_VIDEOS, TOOLS_VAL_CPV, TOOLS_VAL_ITEMS = 8, 2, 4
+TOOLS_DECAY = ["defs.decay.exp", "defs.periodicity.drops", 2, 0.5]
+TOOLS_SEED = 13
+AUDIO_SHAPE, AUDIO_CLASSES = (64, 48, 3), 7
+
+
+def ablation_want():
+    """(row, launches per call) of profile_ablation's stage rows in the
+    JAX tool's order, and of its --per-layer rows, at phase 5's width."""
+    n = TRAIN_CLIPS * FPC
+    rows = [("preprocess (crop+mean+mir)", {}),
+            ("alexnet fwd (fc7)", {"lrn": 2}),
+            ("alexnet fwd+bwd", {"lrn": 2, "lrn_bwd": 2,
+                                 "conv1_dw_shifted": 1}),
+            ("alexnet fwd+bwd, LRN=id", {"conv1_dw_shifted": 1}),
+            ("lrn (%d, 57, 57, 96)" % n, {"lrn": 1}),
+            ("lrn (%d, 28, 28, 256)" % n, {"lrn": 1}),
+            ("lstm 2x256 fwd+bwd", {"lstm_step": FPC * LAYERS})]
+    # conv1's weight gradient in every stack, then one LRN from lrn1 on
+    # and two from lrn2 on, forward and backward
+    per_layer = [(name, dict({"conv1_dw_shifted": 1}, **(
+        {"lrn": 1, "lrn_bwd": 1} if 1 <= i <= 3 else
+        {"lrn": 2, "lrn_bwd": 2} if i > 3 else {})))
+        for i, name in enumerate(profile_ablation.LAYER_NAMES)]
+    return rows, per_layer
+
+
+def _normwise(a, b):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
+
+
+def tools_pretrained(results, folder):
+    """validate_pretrained on a synthesized 1000-class bvlc file: the
+    manifest recorded (0), then matched (0), a modified file against it
+    (1); each fixture forward launches its 2 LRN kernels; the card's fc6
+    and fc7 against the CPU's in float32."""
+    work = os.path.join(folder, "bvlc13")
+    os.makedirs(work)
+    weights = os.path.join(work, "bvlc_alexnet.npy")
+    rng = np.random.default_rng(TOOLS_SEED)
+    net = {layer: [rng.standard_normal(w, np.float32) * np.float32(0.01),
+                   rng.standard_normal(b, np.float32) * np.float32(0.1)]
+           for layer, (w, b) in validate_pretrained.BVLC_SHAPES.items()}
+    np.save(weights, np.asarray(net, dtype=object), allow_pickle=True)
+    del net
+    modified = os.path.join(work, "modified.npy")
+    shutil.copyfile(weights, modified)
+    with open(modified, "r+b") as f:
+        f.seek(os.path.getsize(modified) // 2)        # inside fc6's weights
+        f.write(b"\x01" * 8)
+    cpu = validate_pretrained.features(weights, "cpu")
+    codes, launched = [], []
+    t0 = time.monotonic()
+    with _PlainLockedOut():
+        reset_counts()
+        card = validate_pretrained.features(weights, "cuda")
+        launched.append(counts(("lrn",)))
+        for argv in ([weights], [weights],
+                     [modified, "--manifest", weights + ".manifest.json",
+                      "--no-sidecar"]):
+            reset_counts()
+            codes.append(validate_pretrained.main(argv))
+            launched.append(counts(("lrn",)))
+    wall = time.monotonic() - t0
+    errs = {layer: _normwise(card[layer], cpu[layer]) for layer in card}
+    results["tools_pretrained"] = {"codes": codes, "launches": launched,
+                                   "card_vs_cpu": errs, "wall_s": wall}
+    log("  validate_pretrained: exit codes %s (recorded, matched, a "
+        "modified file); lrn launched %s (features, then each run: 2 "
+        "fixture forwards of 2 LRN); card vs CPU fc6 %.3g, fc7 %.3g "
+        "normwise; %.1f s" % (codes, [c["lrn"] for c in launched],
+                               errs["fc6"], errs["fc7"], wall))
+    if codes != [0, 0, 1]:
+        raise AssertionError("validate_pretrained exit codes %s" % codes)
+    if launched != [{"lrn": 4}] * 4:
+        raise AssertionError("validate_pretrained launched %s" % launched)
+    if not all(e <= 1e-3 for e in errs.values()):
+        raise AssertionError("fc6 / fc7 card vs CPU %s" % errs)
+
+
+def tools_ablation(results):
+    """profile_ablation at full width, both modes, with the plain
+    versions locked out: every row finite and above 0, each row's
+    launches per call as listed, every LRN backward the vector design."""
+    log("  profile_ablation on %s: %d clips x %d frames of 240x320 uint8, "
+        "crop 227, bf16" % (gpu_line(), TRAIN_CLIPS, FPC))
+    width = ["--batch-clips", str(TRAIN_CLIPS), "--fpc", str(FPC)]
+    reset_counts()
+    t0 = time.monotonic()
+    with _PlainLockedOut():
+        rows = profile_ablation.main(width)
+        layers_ = profile_ablation.main(width + ["--per-layer"])
+    wall = time.monotonic() - t0
+    want_rows, want_layers = ablation_want()
+    designs = dict(lrn_mod.lrn_backward.variant_launches)
+    bwd = lrn_mod.lrn_backward.launches
+    approx = (rows[0][1] + rows[2][1] + rows[-1][1]) * 1e3
+    results["tools_ablation"] = {
+        "rows": [list(r) for r in rows], "per_layer": [list(r)
+                                                       for r in layers_],
+        "approx_step_ms": approx, "wall_s": wall, "lrn_bwd": designs}
+    log("  approx step (pre + alexnet-grad + lstm-grad) %.2f ms against "
+        "phase 5's measured step %.2f ms (recorded, not held); both modes "
+        "in %.1f s; LRN backward designs %s"
+        % (approx, results["train_step_ms"], wall, designs))
+    for name, sec, launched in rows:
+        log("    %-28s %8.3f ms  %s" % (name, sec * 1e3, launched))
+    for name, cum, delta, launched in layers_:
+        log("    %-6s cum %8.3f ms  delta %8.3f ms  %s"
+            % (name, cum * 1e3, delta * 1e3, launched))
+    got = [(r[0], r[-1]) for r in rows]
+    got_layers = [(r[0], r[-1]) for r in layers_]
+    if got != want_rows or got_layers != want_layers:
+        raise AssertionError("profile_ablation rows and launches %s %s, "
+                             "expected %s %s" % (got, got_layers,
+                                                 want_rows, want_layers))
+    if not all(math.isfinite(r[1]) and r[1] > 0 for r in rows + layers_):
+        raise AssertionError("profile_ablation times %s" % rows)
+    if designs != {"staged": 0, "vector": bwd} or not bwd:
+        raise AssertionError("LRN backward designs %s of %d" % (designs, bwd))
+
+
+def _accuracy(run_folder, run_id):
+    """The top-1 accuracy file a val run of ``run_id`` wrote."""
+    (path,) = glob.glob(os.path.join(run_folder, "accuracy_%s_*" % run_id))
+    with open(path) as f:
+        return float(f.read())
+
+
+def tools_evaluate(results, folder):
+    """A short run_task run writes 2 checkpoints; each one's val phase
+    run directly, then evaluate_multiple_checkpoints in process, with
+    --only / --omit and once with --subprocess, and validate_checkpoints
+    once, in float32 with TF32 off and cuDNN deterministic, give the same
+    accuracies.  Returns (val config, checkpoints, val paths file, the
+    first checkpoint's logits pickle, accuracies)."""
+    work = os.path.join(folder, "data13")
+    os.makedirs(work)
+    train_path = pack_split(work, "videos.train", TOOLS_TRAIN_VIDEOS, 1,
+                            TOOLS_SEED, "vid")
+    val_path = pack_split(work, "videos.val", TOOLS_VAL_VIDEOS,
+                          TOOLS_VAL_CPV, TOOLS_SEED + 1, "val")
+    rf = os.path.join(folder, "run13")
+    train = {"batch_size": TOOLS_BATCH, "epochs": 2,
+             "optimizer": "defs.optim.sgd", "base_lr": 0.001,
+             "lr_mult": "None", "clip_norm": 10, "dropout_keep_prob": 0.5,
+             "ema_decay": 0.99, "eval_every_epochs": 1,
+             "lr_decay": TOOLS_DECAY}
+    reset_counts()
+    t0 = time.monotonic()
+    with _PlainLockedOut():
+        run_task.main(run_config(folder, "train13.json", "train",
+                                 train_path, val_path, TOOLS_VAL_ITEMS,
+                                 run_folder=rf, run_id="phase13",
+                                 train=train))
+    train_s = time.monotonic() - t0
+    ckpts = evaluate_multiple_checkpoints.filter_checkpoints(
+        sorted(glob.glob(os.path.join(rf, "checkpoints", "*_gs_*.ckpt"))))
+    epochs = [evaluate_multiple_checkpoints.checkpoint_epoch(c)
+              for c in ckpts]
+    if epochs != [1, 2]:
+        raise AssertionError("checkpoints %s" % ckpts)
+    names = [os.path.basename(c) for c in ckpts]
+
+    def val_cfg(name, **over):
+        return run_config(folder, name, "val", train_path, val_path,
+                          TOOLS_VAL_ITEMS, run_folder=rf,
+                          compute_dtype="float32", **over)
+
+    def logits(run_id):
+        """The logits a val run of ``run_id`` wrote (its .total)."""
+        (path,) = glob.glob(os.path.join(
+            rf, "validation_logits_%s_*.total" % run_id))
+        return pickle_rows(path)
+
+    def clear_logits():
+        for path in glob.glob(os.path.join(rf, "validation_logits_phase13_"
+                                               "*")):
+            os.remove(path)
+
+    torch.backends.cudnn.deterministic = True
+    direct, direct_logits, runs, rows = {}, {}, [], {}
+    t0 = time.monotonic()
+    try:
+        with _PlainLockedOut():
+            for i, ck in enumerate(ckpts):
+                reset_counts()
+                run_task.main(val_cfg("val13d%d.json" % i, resume_file=ck,
+                                      run_id="phase13d%d" % i))
+                direct[names[i]] = _accuracy(rf, "phase13d%d" % i)
+                direct_logits[names[i]] = logits("phase13d%d" % i)
+                runs.append(("direct %d" % (i + 1), counts()))
+            cfg = val_cfg("val13.json", run_id="phase13")
+            one = os.path.join(folder, "ckpt13one")
+            os.makedirs(one)
+            for suffix in ("", ".snap"):
+                os.link(ckpts[1] + suffix,
+                        os.path.join(one, names[1] + suffix))
+            evals = {}
+            for what, call in (
+                    ("in process", lambda: evaluate_multiple_checkpoints.main(
+                        [cfg])),
+                    ("--only 2", lambda: evaluate_multiple_checkpoints.main(
+                        [cfg, "--only", "2"])),
+                    ("--omit 2", lambda: evaluate_multiple_checkpoints.main(
+                        [cfg, "--omit", "2"])),
+                    ("validate_checkpoints", lambda: validate_checkpoints.main(
+                        [cfg, one]))):
+                reset_counts()
+                clear_logits()
+                evals[what] = call()
+                runs.append((what, counts()))
+                if len(evals[what]) == 1:
+                    rows[what] = logits("phase13_val_resume")
+        # the child takes no TF32 either: the libraries' own switch
+        os.environ["NVIDIA_TF32_OVERRIDE"] = "0"
+        try:
+            clear_logits()
+            t1 = time.monotonic()
+            what = "--subprocess --only 1"
+            evals[what] = evaluate_multiple_checkpoints.main(
+                [cfg, "--only", "1", "--subprocess"])
+            sub_s = time.monotonic() - t1
+            rows[what] = logits("phase13_val_resume")
+        finally:
+            del os.environ["NVIDIA_TF32_OVERRIDE"]
+    finally:
+        torch.backends.cudnn.deterministic = False
+    wall = time.monotonic() - t0
+    want = {"in process": direct, "--only 2": {names[1]: direct[names[1]]},
+            "--omit 2": {names[0]: direct[names[0]]},
+            "validate_checkpoints": {names[1]: direct[names[1]]},
+            "--subprocess --only 1": {names[0]: direct[names[0]]}}
+    # each one-checkpoint evaluation's logits against its direct run's:
+    # bit for bit in this process, 1e-5 of the logit scale in the child
+    diffs = {what: float(np.abs(got - direct_logits[next(iter(
+        evals[what]))]).max()) for what, got in rows.items()}
+    scale = max(1.0, max(float(np.abs(v).max())
+                         for v in direct_logits.values()))
+    results["tools_evaluate"] = {
+        "checkpoints": names, "direct": direct, "evaluations": evals,
+        "launches": runs, "train_s": train_s, "wall_s": wall,
+        "subprocess_s": sub_s, "logit_diffs": diffs, "logit_scale": scale}
+    log("  run_task trained 2 epochs of %d videos (%d a batch) in %.1f s "
+        "and saved %s" % (TOOLS_TRAIN_VIDEOS, TOOLS_BATCH, train_s, names))
+    log("  val phase of each checkpoint run directly: %s; "
+        "evaluate_multiple_checkpoints: %s; 8 val runs in %.1f s (the "
+        "--subprocess one %.1f s); launches per run (eager calls; graph "
+        "replays run the rest) %s"
+        % (direct, evals, wall, sub_s, runs))
+    log("  max |logit - the direct run's| of each one-checkpoint "
+        "evaluation %s (logit scale %.3g)" % (diffs, scale))
+    if evals != want:
+        raise AssertionError("evaluations %s, expected %s" % (evals, want))
+    child = "--subprocess --only 1"
+    if any(d != 0.0 for what, d in diffs.items() if what != child) or \
+            not diffs[child] <= 1e-5 * scale or len(diffs) != 4:
+        raise AssertionError("evaluation logits differ: %s" % diffs)
+    if not all(c["lrn"] > 0 and c["lstm_step"] > 0 for _, c in runs):
+        raise AssertionError("a val run launched no kernel: %s" % runs)
+    (total,) = glob.glob(os.path.join(rf, "validation_logits_phase13d0_*"))
+    return cfg, ckpts, val_path, total, direct
+
+
+def _tfrecord_frames(path):
+    """The payloads of a TFRecord file, each frame's length and masked
+    CRC32C checked."""
+    out = []
+    with open(path, "rb") as f:
+        while True:
+            header = f.read(8)
+            if not header:
+                return out
+            (n,) = struct.unpack("<Q", header)
+            (hcrc,) = struct.unpack("<I", f.read(4))
+            payload = f.read(n)
+            (pcrc,) = struct.unpack("<I", f.read(4))
+            if hcrc != export_tfrecord._masked_crc(header) or \
+                    pcrc != export_tfrecord._masked_crc(payload) or \
+                    len(payload) != n:
+                raise AssertionError("record %d of %s: bad framing"
+                                     % (len(out), path))
+            out.append(payload)
+
+
+def tools_host(results, folder, cfg, ckpts, val_path, logits_path, direct):
+    """The host tools on the card's own artifacts: inspect and modify a
+    checkpoint the card wrote (the modified one restores in run_task and
+    evaluates as the original), combine_logits of a val run's logits with
+    themselves (its accuracy at every weight), compute_evaluation_stats
+    and view_logits_info on them, export_tfrecord of phase 10's caption
+    image records, lr_calc against the schedule Train ran."""
+    names = checkpoint.get_checkpoint_tensor_names(ckpts[0])
+    inspect_checkpoint.main(["inspect_checkpoint", ckpts[0],
+                             "params/frames/dcnn/conv1/w"])
+    work = os.path.join(folder, "mod13")
+    os.makedirs(work)
+    modified = os.path.join(work, "modified.ckpt")
+    flat = modify_checkpoint.modify(
+        ckpts[0], modified,
+        renames=[("params/clf/output_fc/b", "tmp/b")],
+        regex_renames=[(r"^tmp/", "params/clf/output_fc/")],
+        creates=[("extra/probe", "4,4")])
+    if sorted(flat) != sorted(names + ["extra/probe"]) or \
+            not os.path.exists(modified + ".snap"):
+        raise AssertionError("modified checkpoint holds %s" % sorted(flat))
+    torch.backends.cudnn.deterministic = True
+    try:
+        with _PlainLockedOut():
+            run_task.main(run_config(
+                folder, "val13m.json", "val", None, val_path,
+                TOOLS_VAL_ITEMS, run_folder=os.path.join(folder, "run13"),
+                compute_dtype="float32", resume_file=modified,
+                run_id="phase13m"))
+    finally:
+        torch.backends.cudnn.deterministic = False
+    restored = _accuracy(os.path.join(folder, "run13"), "phase13m")
+    acc = direct[os.path.basename(ckpts[0])]
+    (total,) = glob.glob(os.path.join(folder, "run13",
+                                      "validation_logits_phase13m_*"))
+    same_logits = bool(np.array_equal(pickle_rows(total),
+                                      pickle_rows(logits_path)))
+
+    sweep = combine_logits.combine([logits_path] * 2, [val_path] * 2)
+    stats = compute_evaluation_stats.main(
+        ["compute_evaluation_stats", logits_path, val_path, str(CLASSES)])
+    seen = view_logits_info.main(["view_logits_info", logits_path])
+
+    (record,) = glob.glob(os.path.join(folder, "capt10", "*.tfrecord"))
+    tf_absent = importlib.util.find_spec("tensorflow") is None
+    t0 = time.monotonic()
+    out, n = export_tfrecord.convert(record, os.path.join(
+        work, "captions.tf.tfrecord"))
+    export_s = time.monotonic() - t0
+    frames = _tfrecord_frames(out)
+    size = records.read_size_file(record + ".size")
+
+    sched = glob.glob(os.path.join(folder, "run13",
+                                   "phase13_*_lr_decay_schedule.txt"))
+    with open(sched[0]) as f:
+        ran = [line.rsplit(" ", 1)[1] for line in f.read().splitlines()]
+    decay = [defs.check(TOOLS_DECAY[0], defs.decay),
+             defs.check(TOOLS_DECAY[1], defs.periodicity)] + TOOLS_DECAY[2:]
+    projected = lr_calc.project(0.001, TOOLS_TRAIN_VIDEOS // TOOLS_BATCH, 2,
+                                decay)
+    results["tools_host"] = {
+        "tensors": len(names), "restored_accuracy": restored,
+        "restored_logits_equal": same_logits,
+        "sweep": sweep, "stats_accuracy": stats["accuracy"],
+        "logits_rows": sum(seen["histogram"].values()),
+        "export": {"records": n, "size_items": size["items"],
+                   "tensorflow_absent": tf_absent, "s": export_s},
+        "lr": projected}
+    log("  inspect_checkpoint: %d tensors; modify_checkpoint (rename, "
+        "regex-rename, create) restores in run_task: accuracy %.4f "
+        "(original %.4f), logits equal %s; combine_logits of a val "
+        "run's logits with themselves: %s at every weight (the run: "
+        "%.4f); "
+        "compute_evaluation_stats %.4f; view_logits_info %d rows; "
+        "export_tfrecord of phase 10's caption records: %d records "
+        "(.size: %d), pure-Python framing (no tensorflow: %s), %.2f s; "
+        "lr_calc %s = the schedule Train ran"
+        % (len(names), restored, acc, same_logits,
+           sorted({r[-1] for r in sweep}), acc,
+           stats["accuracy"], sum(seen["histogram"].values()), n,
+           size["items"], tf_absent, export_s,
+           ["%.8f" % lr for lr in projected]))
+    if restored != acc or not same_logits:
+        raise AssertionError("the modified checkpoint evaluates %s (logits "
+                             "equal: %s), the original %s"
+                             % (restored, same_logits, acc))
+    if {r[-1] for r in sweep} != {acc} or len(sweep) != 11 or \
+            stats["accuracy"] != acc:
+        raise AssertionError("combine_logits %s, stats %s, accuracy %s"
+                             % (sweep, stats["accuracy"], acc))
+    if sum(seen["histogram"].values()) != TOOLS_VAL_VIDEOS:
+        raise AssertionError("view_logits_info %s" % seen)
+    if not tf_absent or n != len(frames) or n != size["items"]:
+        raise AssertionError("export_tfrecord: %d records, %d frames, "
+                             ".size %s, tensorflow absent %s"
+                             % (n, len(frames), size, tf_absent))
+    if len(sched) != 1 or ran != ["%2.8f" % lr for lr in projected]:
+        raise AssertionError("lr_calc %s, Train ran %s" % (projected, ran))
+
+
+def tools_audionet(results):
+    """audionet's forward on the card against the CPU, float32."""
+    x = np.random.RandomState(TOOLS_SEED).randn(4, *AUDIO_SHAPE)
+    x = torch.from_numpy(x.astype(np.float32))
+    out = {}
+    for device in ("cpu", "cuda"):
+        params = audionet.init(torch.Generator().manual_seed(TOOLS_SEED),
+                               AUDIO_SHAPE, AUDIO_CLASSES, device=device)
+        with torch.no_grad():
+            out[device] = audionet.apply(params, x.to(device)).cpu()
+    err = _normwise(out["cuda"], out["cpu"])
+    results["tools_audionet"] = {"card_vs_cpu": err}
+    log("  audionet: logits of (4, %d, %d, %d) card vs CPU %.3g normwise "
+        "(float32)" % (AUDIO_SHAPE + (err,)))
+    if out["cuda"].shape != (4, AUDIO_CLASSES) or not err <= 1e-4:
+        raise AssertionError("audionet card vs CPU %s" % err)
+
+
+def phase_tools(results, folder):
+    """Phase 13: the remaining tools and audionet on the card, in phase
+    8's folder, without the profiler: graph replays run unmetered here
+    (captures still with the plain versions locked out)."""
+    log("phase 13: validate_pretrained, profile_ablation, "
+        "evaluate_multiple_checkpoints, the host tools, audionet")
+    graphs_mod.Program.replay = _REPLAY
+    try:
+        for what, step in (
+                ("validate_pretrained", lambda: tools_pretrained(results,
+                                                                 folder)),
+                ("profile_ablation", lambda: tools_ablation(results))):
+            t0 = time.monotonic()
+            step()
+            log("  %s took %.1f s" % (what, time.monotonic() - t0))
+            torch.cuda.empty_cache()
+        t0 = time.monotonic()
+        args = tools_evaluate(results, folder)
+        tools_host(results, folder, *args)
+        log("  the evaluation and the host tools took %.1f s"
+            % (time.monotonic() - t0))
+        tools_audionet(results)
+    finally:
+        graphs_mod.Program.replay = _metered_replay
+
+
 def kernel_entry(name, source, replaces, launches, cases, main_cases):
     """One kernel's line entry.  Times and bounds are for the launches of
     the main path's run (the sum over its launch sites); errors are the
@@ -4677,6 +5170,12 @@ def main(argv=None):
         phase_mesh(results, folder, train_path)
         results["mesh_phase_s"] = time.monotonic() - t0
         log("  phase 12 took %.1f s" % results["mesh_phase_s"])
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.monotonic()
+        phase_tools(results, folder)
+        results["tools_phase_s"] = time.monotonic() - t0
+        log("  phase 13 took %.1f s" % results["tools_phase_s"])
     finally:
         shutil.rmtree(folder, ignore_errors=True)
 

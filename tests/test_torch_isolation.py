@@ -1,7 +1,7 @@
 """The port stands alone: no module of ``video_learning_tpu_torch`` nor
 ``chip_smoke.py`` imports JAX or the JAX package, nothing they import at
-module level needs jax, yaml or PIL, and the entry points refuse to run
-on the CPU unless asked to."""
+module level needs jax, yaml, PIL, tensorflow or matplotlib, and the
+entry points refuse to run on the CPU unless asked to."""
 
 import ast
 import os
@@ -218,17 +218,106 @@ def test_json_config_loads_with_yaml_blocked(tmp_path):
 
 
 def test_no_yaml_or_pil_at_module_level():
+    """Nor tensorflow or matplotlib: the GPU machine has none of the four."""
     bad = ["%s imports %s at module level" % (os.path.relpath(p, REPO), n)
            for p in _port_sources() for n, top in _imported_modules(p)
-           if top and n.split(".")[0] in ("yaml", "PIL")]
+           if top and n.split(".")[0] in ("yaml", "PIL", "tensorflow",
+                                           "matplotlib")]
     assert not bad, "\n".join(bad)
+
+
+def test_tools_model_and_audio_slice_modules_are_checked():
+    """The checkpoint, schedule, logit, format and evaluation tools,
+    audionet and the audio package are among the sources checked above,
+    import neither JAX, optax nor the JAX package, and nothing of yaml,
+    PIL, tensorflow or matplotlib at module level."""
+    sources = {os.path.relpath(p, REPO) for p in _port_sources()}
+    rels = ["video_learning_tpu_torch/tools/%s.py" % t for t in (
+        "inspect_checkpoint", "modify_checkpoint", "lr_calc",
+        "combine_logits", "combine_runs", "compute_evaluation_stats",
+        "view_logits_info", "examine_dataset", "plot_metrics",
+        "evaluate_multiple_checkpoints", "validate_checkpoints",
+        "validate_pretrained", "profile_ablation", "export_tfrecord",
+        "import_tfrecord", "split_video", "dryrun_multichip")]
+    rels += ["video_learning_tpu_torch/models/audionet.py",
+             "video_learning_tpu_torch/audio/__init__.py",
+             "video_learning_tpu_torch/audio/spectrograms.py",
+             "video_learning_tpu_torch/audio/postproc_folders.py"]
+    for rel in rels:
+        assert rel in sources, rel
+        found = _imported_modules(os.path.join(REPO, rel))
+        roots = {n.split(".")[0] for n, _ in found}
+        assert not roots & {"jax", "jaxlib", "optax", "video_learning_tpu"}
+        assert not {n.split(".")[0] for n, top in found if top} & \
+            {"yaml", "PIL", "tensorflow", "matplotlib"}, rel
+    for script in ("tools/to_single_item_instance.sh",
+                   "audio/extract_spectrograms.sh"):
+        path = os.path.join(PKG, script)
+        assert os.access(path, os.X_OK), script
+        assert "video_learning_tpu." not in open(path).read()
+
+
+def _device_options(path):
+    """The default of every ``add_argument("--device", ...)`` in a file."""
+    out = []
+    for node in ast.walk(ast.parse(open(path, encoding="utf-8").read())):
+        if isinstance(node, ast.Call) and \
+                getattr(node.func, "attr", None) == "add_argument" and \
+                node.args and isinstance(node.args[0], ast.Constant) and \
+                node.args[0].value == "--device":
+            defaults = [k.value for k in node.keywords if k.arg == "default"]
+            out.append(defaults[0].value if defaults and
+                       isinstance(defaults[0], ast.Constant) else None)
+    return out
+
+
+def test_every_device_option_defaults_to_cuda():
+    """Each ``--device`` option of a port entry point defaults to the
+    card."""
+    found = {os.path.relpath(p, REPO): _device_options(p)
+             for p in _port_sources()}
+    found = {k: v for k, v in found.items() if v}
+    assert all(v == ["cuda"] for v in found.values()), found
+    for tool in ("run_task", "tools/infer", "tools/serve",
+                 "tools/export_serving", "tools/dryrun_multichip",
+                 "tools/evaluate_multiple_checkpoints",
+                 "tools/validate_checkpoints", "tools/validate_pretrained",
+                 "tools/profile_ablation"):
+        assert "video_learning_tpu_torch/%s.py" % tool in found, tool
+
+
+def test_new_entry_points_refuse_cpu_unless_asked(tmp_path):
+    """The dry run, the checkpoint evaluation, validate_pretrained and
+    profile_ablation raise without a card unless given the CPU (no rank
+    and no model is started first)."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; this checks the refusal "
+                    "on a machine without one")
+    import json
+    from video_learning_tpu_torch.tools import (
+        dryrun_multichip, evaluate_multiple_checkpoints, profile_ablation,
+        validate_checkpoints, validate_pretrained)
+    from video_learning_tpu_torch.utils import FrameworkError
+
+    cfg = tmp_path / "val.json"
+    cfg.write_text(json.dumps({"run": {"run_folder": str(tmp_path)}}))
+    for call in (lambda: dryrun_multichip.main(["4"]),
+                 lambda: dryrun_multichip.dryrun_multichip(4),
+                 lambda: evaluate_multiple_checkpoints.main([str(cfg)]),
+                 lambda: validate_checkpoints.main([str(cfg),
+                                                    str(tmp_path)]),
+                 lambda: validate_pretrained.main([str(tmp_path / "w")]),
+                 lambda: profile_ablation.main([]),
+                 lambda: profile_ablation.main(["--per-layer"])):
+        with pytest.raises(FrameworkError, match="device='cpu'"):
+            call()
 
 
 def test_imports_with_jax_yaml_and_pil_blocked():
     code = (
         "import sys, pkgutil, importlib\n"
-        "for m in ('jax', 'jaxlib', 'optax', 'yaml', 'PIL',"
-        " 'video_learning_tpu'):\n"
+        "for m in ('jax', 'jaxlib', 'optax', 'yaml', 'PIL', 'tensorflow',"
+        " 'matplotlib', 'video_learning_tpu'):\n"
         "    sys.modules[m] = None\n"
         "import video_learning_tpu_torch as p\n"
         "names = [m.name for m in pkgutil.walk_packages(p.__path__,"

@@ -246,7 +246,7 @@ def test_dryrun_multichip_passes_on_four_ranks(capsys):
     """The counterpart of ``__graft_entry__.dryrun_multichip(4)``: a
     (data=2, model=2) step with accum_steps 2 and EMA, the float, int8
     and int8_static forwards and a caption step and decode."""
-    line = dryrun_multichip.dryrun_multichip(4)
+    line = dryrun_multichip.dryrun_multichip(4, device="cpu")
     assert line.startswith("dryrun_multichip OK: mesh=(data=2, model=2) ")
     assert "val_logits=(4, 16)" in line
     assert "caption_decode=(4, 6)" in line

@@ -153,11 +153,19 @@ def conv_apply(params, x, strides, padding, groups=1, relu=True,
 
 
 def max_pool(x, window, strides, padding):
-    """NHWC max pool with TF ``VALID`` padding (the only one AlexNet
-    uses)."""
-    if padding != "VALID":
-        error("max_pool: only VALID padding is ported, got %r" % (padding,))
-    y = F.max_pool2d(x.permute(0, 3, 1, 2), tuple(window), tuple(strides))
+    """NHWC max pool with TF ``VALID`` padding (AlexNet's) or ``SAME``
+    padding (audionet's: -inf on the high side first, as JAX's
+    ``reduce_window`` pads)."""
+    y = x.permute(0, 3, 1, 2)
+    if padding == "SAME":
+        (top, bottom), (left, right) = (
+            same_pads(y.shape[2], window[0], strides[0]),
+            same_pads(y.shape[3], window[1], strides[1]))
+        y = F.pad(y, (left, right, top, bottom), value=float("-inf"))
+    elif padding != "VALID":
+        error("max_pool padding must be SAME or VALID, got %r"
+              % (padding,))
+    y = F.max_pool2d(y, tuple(window), tuple(strides))
     return y.permute(0, 2, 3, 1)
 
 

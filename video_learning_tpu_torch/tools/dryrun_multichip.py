@@ -4,10 +4,12 @@ int8 and caption programs over a mesh of ranks, on tiny shapes.
 The port's counterpart of ``__graft_entry__.dryrun_multichip``:
 
   python -m video_learning_tpu_torch.tools.dryrun_multichip 4 \\
-      [--device cpu | cuda:0]
+      [--device cuda | cuda:0 | cpu]
 
-starts n ranks on this machine (gloo; on the CPU unless ``--device``
-names a card, which the ranks then share) arranged as (data=n/2,
+starts n ranks on this machine over gloo, on the cards by default (a
+card a rank; ``cuda:0`` puts every rank on card 0) and on the CPU only
+with ``--device cpu``: without a card the default raises, as every
+entry point of the port does.  The ranks are arranged as (data=n/2,
 model=2) where n is even, else (data=n, model=1), as the JAX dry run
 arranges its devices.  Each rank runs what the JAX dry run runs, with
 the flagship of ``flagship.py`` (67x67 frames, fpc 4, 16 classes, 2x256
@@ -28,7 +30,8 @@ import argparse
 
 import numpy as np
 
-from video_learning_tpu_torch.utils import ensure_console_logging, error
+from video_learning_tpu_torch.utils import (ensure_console_logging, error,
+                                            resolve_device)
 
 
 def _deltas(mesh, logits, quantized):
@@ -136,10 +139,12 @@ def rank_main(device, data, model_par):
                               for m in sys.modules)}
 
 
-def dryrun_multichip(n_devices, device="cpu", timeout=600):
-    """Run the dry run as ``n_devices`` ranks; returns (and prints) the
-    JAX-format line.  Raises if any rank fails or disagrees."""
+def dryrun_multichip(n_devices, device="cuda", timeout=600):
+    """Run the dry run as ``n_devices`` ranks on ``device`` (the card
+    unless ``device="cpu"``); returns (and prints) the JAX-format line.
+    Raises if any rank fails or disagrees."""
     from video_learning_tpu_torch.parallel import launch
+    resolve_device(device)
     n = int(n_devices)
     model_par = 2 if n % 2 == 0 and n >= 2 else 1
     data = n // model_par
@@ -172,9 +177,9 @@ def main(argv=None):
     parser = argparse.ArgumentParser(
         description="A data x model dry run over n ranks (gloo).")
     parser.add_argument("n_devices", type=int, help="number of ranks")
-    parser.add_argument("--device", default="cpu",
-                        help="cpu (default) or a card all ranks share, "
-                             "e.g. cuda:0")
+    parser.add_argument("--device", default="cuda",
+                        help="cuda (default: a card a rank), cuda:0 (every "
+                             "rank on card 0) or cpu")
     parser.add_argument("--timeout", type=float, default=600)
     args = parser.parse_args(argv)
     return dryrun_multichip(args.n_devices, args.device, args.timeout)

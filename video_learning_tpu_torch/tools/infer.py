@@ -42,6 +42,7 @@ import tempfile
 
 import numpy as np
 
+from video_learning_tpu_torch.tools.combine_logits import load_class_map
 from video_learning_tpu_torch.utils import (ensure_console_logging, error,
                                             info, warning)
 
@@ -365,9 +366,7 @@ def infer(config_file, media, checkpoint="latest", topk=5, classes=None,
                       % (len(logits), len(media)))
             idx2name = None
             if classes:
-                from video_learning_tpu_torch.tools.serve import \
-                    load_class_map
-                idx2name = load_class_map(classes)
+                idx2name = load_class_map(classes)[1]
             probs = _softmax(logits)
             k = min(topk, probs.shape[-1])
             for path, p in zip(media, probs):

@@ -54,6 +54,7 @@ import time
 
 import numpy as np
 
+from video_learning_tpu_torch.tools.combine_logits import load_class_map
 from video_learning_tpu_torch.utils import ensure_console_logging, error, info
 
 
@@ -284,19 +285,6 @@ def _parse_npz(body):
         return dict(z)
 
 
-def load_class_map(path):
-    """``classname index`` lines -> {index: classname}."""
-    i2c = {}
-    with open(path) as f:
-        for line in f:
-            parts = line.strip().split()
-            if parts:
-                i2c[int(parts[1])] = parts[0]
-    if len(set(i2c.values())) != len(i2c):
-        error("Non-bijective class map in %s" % path)
-    return i2c
-
-
 def make_handler(batcher, idx2name=None):
     from http.server import BaseHTTPRequestHandler
 
@@ -449,7 +437,7 @@ def serve(module, port=8000, host="127.0.0.1", classes=None, window_ms=3.0,
         daemon_threads = False      # wait for in-flight requests
         block_on_close = True
 
-    idx2name = load_class_map(classes) if classes else None
+    idx2name = load_class_map(classes)[1] if classes else None
     info("Serving module (inputs=%s, batch_items=%s, buckets=%s, "
          "quantize=%s); warming up..."
          % ([i["name"] for i in module.meta["inputs"]],
