@@ -206,7 +206,7 @@ Phases (each raises on failure; nothing is caught and passed over):
    accuracy files and one .total of 32 rows), and a resume from
    ``latest`` whose steps continue the first run's.
 
-13. the remaining tools and audionet, last, in phase 8's folder before
+13. the remaining tools and audionet, in phase 8's folder before
    it is removed, without the profiler (graph replays run unmetered;
    captures still with the plain versions locked out), launches counted
    by the wrappers with the plain versions locked out.
@@ -246,6 +246,32 @@ Phases (each raises on failure; nothing is caught and passed over):
    ``split_video`` and the mp3 path of ``audio/spectrograms`` (need
    ffmpeg), spectrogram PNGs (need PIL); each raises there, as the CPU
    tests show.
+14. resume and serve over a mesh, last, in phase 8's folder before it is
+   removed, without the profiler (float32 with TF32 off and cuDNN
+   deterministic where it compares).  Phase 5's training step with Adam,
+   an EMA and two tiers (lr_mult 2) at 128 clips in bf16: 3 uninterrupted
+   steps against 2 steps, ``save_checkpoint``, a fresh ``Train``,
+   ``restore_checkpoint(strict=True)``, ``load_state_dict`` and step 3.
+   The file names the optimizer state as the JAX package does,
+   ``opt_state_leaves/0..N-1`` with N = 2 x tiers + 2 x parameters (no
+   ``opt_state/`` name); each tier resumes at the schedule's lr of step
+   3; the resumed step, counted with the plain versions locked out,
+   launches lrn 2, lrn_bwd 2, lstm_step 32 and conv1_dw_shifted 1; its
+   metrics within 1e-5 relative and every state tensor within phase
+   11's rule.  The same at 8 clips in float32 into an engine that has
+   captured its step before the restore, so the resumed step is a replay
+   into the restored tensors: bitwise equal to the uninterrupted step.
+   Meanwhile 4 gloo ranks sharing the card export phase 12's checkpoint
+   in float32 as a (data 2, model 2) artifact with buckets [2, 8, 32],
+   and each loads it; after the resumed runs each runs ``tools.serve``:
+   rank 0 serves while five clients post 1, 1, 1, 8 and 32 items at
+   once (the 1-item requests coalesce), and the other ranks follow; the
+   rows within 1e-3 x max(1, max|logit|) of the single-process module
+   of the artifact's parameters (eager, as the mesh), every call on
+   every rank launching lrn 2 and lstm_step 32; then a 1 s ``selftest``
+   a size on the mesh and on the single process (recorded, not held:
+   the ranks share one card), and every rank exits 0 after rank 0's
+   stop.
 
 Phases 3-10 run the port's defaults, which on the card are graph
 replays: a program's first call at a shape runs eagerly and then
@@ -3513,28 +3539,43 @@ def graph_engines(opts):
     return eager, graphed, processor
 
 
+def state_parts(state):
+    """{part/name: tensor} of a ``Train.state_dict``: the parameters, the
+    EMA and the optimizer's optax leaves by index."""
+    out = {"opt_state_leaves/%d" % i: v
+           for i, v in enumerate(state["opt_state_leaves"])}
+    for part in ("params", "ema_params"):
+        out.update({part + "/" + k: v
+                    for k, v in state.get(part, {}).items()})
+    return out
+
+
 def states_agree(what, eager, graphed, start):
     """Every parameter, moment, count and EMA tensor of the graphed
     engine within 1e-3 x its largest eager update + 1e-7 x its max|value|
-    of the eager one's; returns whether all are bitwise equal and the
-    worst error as a share of its update."""
-    se, sg = eager.state_dict(), graphed.state_dict()
+    of the eager one's (``start``: a ``state_dict`` before the updates;
+    ``eager`` and ``graphed``: engines or their ``state_dict``s); returns
+    whether all are bitwise equal and the worst error as a share of its
+    update."""
+    se, sg = [state_parts(e if isinstance(e, dict) else e.state_dict())
+              for e in (eager, graphed)]
+    start = state_parts(start)
+    if sorted(se) != sorted(sg):
+        raise AssertionError("%s: the states hold other names" % what)
     bitwise, worst = True, 0.0
-    for part in ("params", "opt_state", "ema_params"):
-        for k, v in se.get(part, {}).items():
-            g = sg[part][k]
-            bitwise = bitwise and torch.equal(v, g)
-            if not v.is_floating_point():
-                if not torch.equal(v, g):
-                    raise AssertionError("%s: %s %s differs" % (what, part,
-                                                                k))
-                continue
-            moved = float((v - start[part][k]).abs().max())
-            err = float((g - v).abs().max())
-            if err > 1e-3 * moved + 1e-7 * float(v.abs().max()):
-                raise AssertionError("%s: %s %s differs by %.3g (moved "
-                                     "%.3g)" % (what, part, k, err, moved))
-            worst = max(worst, err / moved if moved else 0.0)
+    for k, v in se.items():
+        g = sg[k]
+        bitwise = bitwise and torch.equal(v, g)
+        if not v.is_floating_point():
+            if not torch.equal(v, g):
+                raise AssertionError("%s: %s differs" % (what, k))
+            continue
+        moved = float((v - start[k]).abs().max())
+        err = float((g - v).abs().max())
+        if err > 1e-3 * moved + 1e-7 * float(v.abs().max()):
+            raise AssertionError("%s: %s differs by %.3g (moved %.3g)"
+                                 % (what, k, err, moved))
+        worst = max(worst, err / moved if moved else 0.0)
     return bitwise, worst
 
 
@@ -4109,28 +4150,28 @@ def _mesh_states_agree(name, ref, got, start, adaptive):
     max|value|), which a program held to itself meets, and the elements
     beyond it."""
     worst, beyond, n, failed = 0.0, 0, 0, []
-    for part in ("params", "opt_state", "ema_params"):
-        for k, v in ref.get(part, {}).items():
-            g = got[part][k]
-            if not v.is_floating_point():
-                if not torch.equal(v, g):
-                    failed.append("%s %s: %s vs %s" % (part, k, g, v))
-                continue
-            moved = float((v - start[part][k]).abs().max())
-            diff = (g - v).abs()
-            vmax = float(v.abs().max())
-            beyond += int((diff > 1e-3 * moved + 1e-7 * vmax).sum())
-            n += diff.numel()
-            worst = max(worst, float(diff.max()) / moved if moved else 0.0)
-            if adaptive:
-                atol = 1e-6 * vmax
-                ok = float(diff.max()) <= 2.0 * moved + atol and float(
-                    (diff > 0.1 * moved + atol).float().mean()) <= 0.01
-            else:
-                ok = float(diff.max()) <= 0.02 * moved + 1e-6 * vmax
-            if not ok:
-                failed.append("%s %s: %.3g (moved %.3g)"
-                              % (part, k, float(diff.max()), moved))
+    ref, got, start = state_parts(ref), state_parts(got), state_parts(start)
+    for k, v in ref.items():
+        g = got[k]
+        if not v.is_floating_point():
+            if not torch.equal(v, g):
+                failed.append("%s: %s vs %s" % (k, g, v))
+            continue
+        moved = float((v - start[k]).abs().max())
+        diff = (g - v).abs()
+        vmax = float(v.abs().max())
+        beyond += int((diff > 1e-3 * moved + 1e-7 * vmax).sum())
+        n += diff.numel()
+        worst = max(worst, float(diff.max()) / moved if moved else 0.0)
+        if adaptive:
+            atol = 1e-6 * vmax
+            ok = float(diff.max()) <= 2.0 * moved + atol and float(
+                (diff > 0.1 * moved + atol).float().mean()) <= 0.01
+        else:
+            ok = float(diff.max()) <= 0.02 * moved + 1e-6 * vmax
+        if not ok:
+            failed.append("%s: %.3g (moved %.3g)"
+                          % (k, float(diff.max()), moved))
     return {"worst_share_of_update": worst,
             "elements_beyond_phase11_rule": beyond, "elements": n,
             "failed": failed}
@@ -5080,6 +5121,456 @@ def phase_tools(results, folder):
         graphs_mod.Program.replay = _metered_replay
 
 
+# ------------------------------------------------------------ phase 14
+# the resumed runs: Adam, an EMA and two tiers (lr_mult 2) on phase 5's
+# training configuration; the uninterrupted run takes RESUME_STEPS steps,
+# the resumed one is saved after RESUME_STEPS - 1 and takes the last
+RESUME_STEPS = 3
+RESUME_OPTS = {"optimizer": "adam", "lr_mult": 2.0, "base_lr": 1e-4}
+RESUME_EMA = 0.99
+RESUME_WANT = {"lrn": 2, "lrn_bwd": 2, "lstm_step": FPC * LAYERS,
+               "conv1_dw": 0, "conv1_dw_shifted": 1}
+# the served mesh artifact: phase 12's checkpoint in float32 on a (2, 2)
+# mesh; one request from each of SERVE_CLIENTS clients (its items),
+# started together (the 1-item ones coalesce in the batcher's window);
+# the selftest SERVE_SELFTEST_S a size of SERVE_ITEMS
+SERVE_MESH = {"data": 2, "model": 2}
+SERVE_BUCKETS = [2, 8, 32]
+SERVE_ITEMS = (1, 8, 32)
+SERVE_CLIENTS = (1, 1, 1, 8, 32)
+SERVE_WINDOW_MS = 50.0
+SERVE_SELFTEST_S = 1.0
+SERVE_SELFTEST_CONCURRENCY = 2
+
+
+def resume_engine(clips, compute_dtype, graphs=None):
+    """Phase 5's training configuration at ``clips`` clips with Adam, an
+    EMA and two tiers, from seed 0."""
+    settings, model = training_flagship(clips, compute_dtype, **RESUME_OPTS)
+    settings.train.ema_decay = RESUME_EMA
+    return Train(settings, settings.feeder, model, seed=0, device="cuda",
+                 graphs=graphs)
+
+
+def resume_run(what, clips, compute_dtype, folder, resumed_from_capture):
+    """RESUME_STEPS steps of one engine (the uninterrupted run), its state
+    saved by ``save_checkpoint`` before the last; a second engine
+    restored from the file (``strict``) by ``load_state_dict`` takes the
+    last step.  ``resumed_from_capture``: the second engine has captured
+    its step on other feeds before the restore, so the resumed step is a
+    replay into the restored tensors; else it is a fresh engine, whose
+    resumed step runs eagerly and is counted by the wrappers with the
+    plain versions locked out.  Returns the uninterrupted and the resumed
+    engine's last metrics and states, the file's leaf names, the restored
+    tiers' lr and the resumed step's launches."""
+    a = resume_engine(clips, compute_dtype)
+    processor = a.settings.feeder.datasets[0].processor
+    feeds = [training_feed(processor, clips, 70 + s, "cuda")
+             for s in range(RESUME_STEPS)]
+    path = os.path.join(folder, "resume14_%s.ckpt" % what)
+    for f in feeds[:-1]:
+        a.run_step(dict(f))
+    start = a.state_dict()
+    t0 = time.monotonic()
+    checkpoint.save_checkpoint(path, start)
+    save_s = time.monotonic() - t0
+    ref = a.run_step(dict(feeds[-1]))
+    torch.cuda.synchronize()
+    want = a.state_dict()
+    leaves = len(a._opt_leaves)
+    del a
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    b = resume_engine(clips, compute_dtype)
+    if resumed_from_capture:
+        for s in range(WARMUP_STEPS + 1):
+            b.run_step(training_feed(processor, clips, 90 + s, "cuda"))
+        if len(b.graph_cache) != 1:
+            raise AssertionError("%s: no step was captured" % what)
+    t0 = time.monotonic()
+    loaded = []
+    state = checkpoint.restore_checkpoint(path, b.state_dict(), strict=True,
+                                          loaded_out=loaded)
+    b.load_state_dict(state, restored_names=loaded)
+    restore_s = time.monotonic() - t0
+    lr = {tier: (float(t.lr(b.opt_state[tier]["count"])),
+                 float(t.lr_array[RESUME_STEPS - 1]))
+          for tier, t in b.tx.tiers.items()}
+    if resumed_from_capture:
+        got = b.run_step(dict(feeds[-1]))
+        launched = None
+    else:
+        got, launched = locked_step(b, feeds[-1])
+    names = checkpoint.get_checkpoint_tensor_names(path)
+    os.remove(path)
+    return {"ref": ref, "got": got, "start": start, "want": want,
+            "have": b.state_dict(), "names": names, "leaves": leaves,
+            "lr": lr, "launched": launched, "save_s": save_s,
+            "restore_s": restore_s, "global_step": b.global_step,
+            "labels": sorted(set(b.tx.labels.values()))}
+
+
+def check_resume(what, run, bitwise_wanted):
+    """The resumed step against the uninterrupted one: the file's
+    optimizer names, the restored lr, the step's launches, the metrics
+    and every state tensor (phase 11's rule; bitwise where wanted)."""
+    opt = [n for n in run["names"] if n.startswith("opt_state_leaves/")]
+    want_names = ["opt_state_leaves/%d" % i for i in range(run["leaves"])]
+    # per tier: Adam's two counts, then mu and nu of each parameter
+    n_params = sum(1 for n in run["names"] if n.startswith("params/"))
+    n_expected = 2 * len(run["labels"]) + 2 * n_params
+    if sorted(opt) != sorted(want_names) or run["leaves"] != n_expected \
+            or any(n.startswith("opt_state/") for n in run["names"]):
+        raise AssertionError("%s: the file's optimizer names %s, expected "
+                             "%d optax leaves" % (what, opt[:4], n_expected))
+    for tier, (lr, table) in run["lr"].items():
+        if lr != table:
+            raise AssertionError("%s: tier %s resumed at lr %r, the "
+                                 "schedule's step %d is %r"
+                                 % (what, tier, lr, RESUME_STEPS - 1, table))
+    if run["global_step"] != RESUME_STEPS:
+        raise AssertionError("%s: resumed run at step %d"
+                             % (what, run["global_step"]))
+    if run["launched"] is not None and run["launched"] != RESUME_WANT:
+        raise AssertionError("%s: the resumed step launched %s, expected "
+                             "%s" % (what, run["launched"], RESUME_WANT))
+    equal = metrics_agree(what, run["ref"], run["got"])
+    bitwise, worst = states_agree(what, run["want"], run["have"],
+                                  run["start"])
+    if bitwise_wanted and not (bitwise and equal):
+        raise AssertionError("%s: the resumed step is not bitwise the "
+                             "uninterrupted one (metrics %s, state %s, "
+                             "worst %.3g of an update)"
+                             % (what, equal, bitwise, worst))
+    log("  %s: %d optax leaves in the file (%d parameters, tiers %s), "
+        "restored lr %s; save %.1f s, restore %.1f s; step %d resumed vs "
+        "uninterrupted: metrics bitwise %s, state bitwise %s (worst %.3g "
+        "of an update)%s"
+        % (what, run["leaves"], n_params, run["labels"],
+           {t: v[0] for t, v in run["lr"].items()}, run["save_s"],
+           run["restore_s"], RESUME_STEPS, equal, bitwise, worst,
+           "" if run["launched"] is None else
+           "; launched %s" % run["launched"]))
+    return {"leaves": run["leaves"], "lr": run["lr"],
+            "launches": run["launched"], "metrics_bitwise": bool(equal),
+            "state_bitwise": bool(bitwise), "worst_share_of_update": worst,
+            "save_s": run["save_s"], "restore_s": run["restore_s"]}
+
+
+def serve_requests(module, n, seed):
+    """A request of ``n`` items for ``module``: uint8 frames and the
+    crop/mirror parameters, from ``seed``."""
+    rs = np.random.RandomState(seed)
+    dset = module.model.settings.feeder.datasets[0]
+    per = [s["shape"][0] // module.meta["batch_items"]
+           for s in module.meta["inputs"]]
+    arrays = []
+    for p, spec in zip(per, module.meta["inputs"]):
+        shape = [p * n] + spec["shape"][1:]
+        if spec["dtype"] == "uint8":
+            arrays.append(rs.randint(0, 256, shape, np.uint8))
+        else:
+            arrays.append(dset.processor.draw_params(
+                p * n, random.Random(seed)).astype(spec["dtype"]))
+    return arrays
+
+
+class _CountedCalls:
+    """A serving module whose every call runs with the plain versions
+    locked out and its launches counted (``per_call``); its other
+    attributes are the module's."""
+
+    def __init__(self, module):
+        self.module = module
+        self.per_call = []
+
+    def __getattr__(self, name):
+        return getattr(self.module, name)
+
+    def __call__(self, *arrays):
+        reset_counts()
+        with _PlainLockedOut():
+            out = self.module(*arrays)
+        self.per_call.append(counts())
+        return out
+
+
+def _word(folder, timeout=600):
+    """The main process's word to the serving ranks (``go`` or ``stop``),
+    waited for."""
+    path = os.path.join(folder, "word")
+    t0 = time.monotonic()
+    while not os.path.exists(path):
+        if time.monotonic() - t0 > timeout:
+            raise AssertionError("no word from the main process")
+        time.sleep(0.05)
+    with open(path) as f:
+        return f.read()
+
+
+def _say(folder, word):
+    tmp = os.path.join(folder, "word.tmp")
+    with open(tmp, "w") as f:
+        f.write(word)
+    os.replace(tmp, os.path.join(folder, "word"))
+
+
+def serve_mesh_rank(device, folder, cfg, consts=None):
+    """One of phase 14's 4 ranks: a (2, 2) export of phase 12's
+    checkpoint through ``cfg`` and ``serving.load`` of it while the main
+    process checks the resumed runs; then, at its word, ``tools.serve``
+    over it: rank 0 serves while SERVE_CLIENTS post a request each, then
+    runs the selftest; the other ranks follow.  Every call on every rank
+    is counted.  Rank 0 saves the rows."""
+    import torch.distributed as dist
+    globals().update(consts or {})
+    _float32_exact()
+    path = os.path.join(folder, "serve14_mesh.zip")
+    t0 = time.monotonic()
+    meta = export_mod.export(cfg, path, "latest", batch_items=SERVE_BUCKETS,
+                             use_ema=True, mesh_shape=SERVE_MESH,
+                             device=device,
+                             workdir=os.path.join(folder, "x14"))
+    export_s = time.monotonic() - t0
+    t0 = time.monotonic()
+    module = _CountedCalls(serving.load(path, device=device))
+    out = {"rank": dist.get_rank(), "export_s": export_s,
+           "load_s": time.monotonic() - t0, "meta_mesh": meta.get("mesh"),
+           "loaded_mesh": module.meta.get("mesh")}
+    torch.cuda.empty_cache()        # the card is the main process's now
+    t0 = time.monotonic()
+    if _word(folder) != "go":
+        return out
+    out["waited_s"] = time.monotonic() - t0
+    if dist.get_rank() != 0:
+        out["followed"] = serve_mod.serve(module)
+        out["selftest"] = serve_mod.selftest(module)
+        out["per_call"] = module.per_call
+        return out
+    t0 = time.monotonic()
+    started = threading.Event()
+    server = threading.Thread(target=serve_mod.serve, args=(module,),
+                              kwargs=dict(port=0, started=started,
+                                          window_ms=SERVE_WINDOW_MS))
+    server.start()
+    if not started.wait(600):
+        raise AssertionError("the mesh server did not start")
+    rows, status, lat = {}, {}, []
+    names = [spec["name"] for spec in module.meta["inputs"]]
+
+    def client(c, n):
+        key = "%d_%d" % (c, n)
+        try:
+            rows[key], dt = post_predict(started.addr, dict(zip(
+                names, serve_requests(module, n, 1400 + c))))
+        except AssertionError as e:     # the answer, checked below
+            status[key] = str(e)
+            return
+        status[key] = 200
+        lat.append({"items": n, "ms": dt * 1e3})
+
+    clients = [threading.Thread(target=client, args=(c, n))
+               for c, n in enumerate(SERVE_CLIENTS)]
+    t0 = time.monotonic()
+    for c in clients:
+        c.start()
+    for c in clients:
+        c.join()
+    out["clients_s"] = time.monotonic() - t0
+    stats = started.batcher.stats
+    out["device_calls"] = dict(stats.device_calls)
+    out["coalesced"] = stats.coalesced
+    started.httpd.shutdown()
+    server.join(300)
+    if server.is_alive():
+        raise AssertionError("the mesh server did not stop")
+    out["status"], out["latencies"] = status, lat
+    np.savez(os.path.join(folder, "serve14_rows.npz"), **rows)
+    out["selftest"] = serve_mod.selftest(
+        module, item_counts=SERVE_ITEMS, duration_s=SERVE_SELFTEST_S,
+        concurrency=SERVE_SELFTEST_CONCURRENCY)
+    out["per_call"] = module.per_call
+    out["serve_s"] = time.monotonic() - t0
+    return out
+
+
+def single_module(path):
+    """The single-process module of a mesh artifact's parameters and
+    buckets (the artifact is also a checkpoint), on the card, eager as
+    the mesh runs."""
+    import zipfile
+    with zipfile.ZipFile(path) as z:
+        meta = json.loads(z.read("meta.json").decode("utf-8"))
+        with np.load(io.BytesIO(z.read("params.npz"))) as npz:
+            flat = {k: npz[k] for k in npz.files}
+    model = Model(serving.settings_from_spec(meta["model"]))
+    return serving.ServingModule(
+        model, checkpoint.unflatten_tree(checkpoint.from_jax_flat(flat)),
+        batch_items=meta["buckets"], device="cuda", graphs=False,
+        ema=meta["ema"], run_id=meta["run_id"])
+
+
+class _ServingRanks(threading.Thread):
+    """The 4 serving ranks of phase 14, started by ``parallel.launch`` in
+    a thread: they export and load the artifact while the main process
+    checks the resumed runs, then wait for its word (``_say``)."""
+
+    def __init__(self, folder):
+        super().__init__(name="phase14-ranks")
+        from video_learning_tpu_torch.parallel import launch
+        self.launch = launch
+        with open(os.path.join(folder, "val12.json")) as f:
+            doc = json.load(f)
+        doc["run"]["compute_dtype"] = "float32"
+        self.cfg = os.path.join(folder, "val14f.json")
+        with open(self.cfg, "w") as f:
+            json.dump(doc, f)
+        self.work = os.path.join(folder, "serve14")
+        os.makedirs(self.work)
+        self.ranks, self.error = None, None
+
+    def run(self):
+        t0 = time.monotonic()
+        try:
+            self.ranks = self.launch.run(
+                4, "chip_smoke:serve_mesh_rank", {
+                    "folder": self.work, "cfg": self.cfg},
+                device=MESH_DEVICE, backend="gloo", timeout=600, threads=2,
+                path=os.path.dirname(os.path.abspath(__file__)))
+        except BaseException as e:  # noqa: BLE001 - raised by ``result``
+            self.error = e
+        self.seconds = time.monotonic() - t0
+
+    def result(self):
+        self.join()
+        if self.error is not None:
+            raise self.error
+        return self.ranks, self.seconds
+
+
+def serve_over_mesh(results, serving_ranks):
+    """4 gloo ranks on the card serve phase 12's checkpoint as a (2, 2)
+    artifact through ``tools.serve``; their rows against the
+    single-process module's, each call's launches on each rank, the
+    selftest beside the single-process one (both eager: a mesh runs
+    eager)."""
+    _say(serving_ranks.work, "go")
+    ranks, ranks_s = serving_ranks.result()
+    work = serving_ranks.work
+    failures = []
+    for r in ranks:
+        if r["meta_mesh"] != SERVE_MESH or r["loaded_mesh"] != SERVE_MESH:
+            failures.append("rank %d meta mesh %s, loaded %s"
+                            % (r["rank"], r["meta_mesh"], r["loaded_mesh"]))
+        bad = [c for c in r["per_call"] if c != VAL_WANT]
+        if bad or not r["per_call"]:
+            failures.append("rank %d: %d of %d calls launched other than "
+                            "%s: %s" % (r["rank"], len(bad),
+                                        len(r["per_call"]), VAL_WANT,
+                                        bad[:2]))
+    calls = [len(r["per_call"]) for r in ranks]
+    if len(set(calls)) != 1:
+        failures.append("the ranks made %s calls" % calls)
+    head = ranks[0]
+    if sorted(head["status"].values()) != [200] * len(SERVE_CLIENTS):
+        failures.append("request status %s" % head["status"])
+    if head["coalesced"] < 1:
+        failures.append("no device call coalesced requests: %s"
+                        % head["device_calls"])
+
+    _float32_exact()
+    single = single_module(os.path.join(work, "serve14_mesh.zip"))
+    worst = 0.0
+    with np.load(os.path.join(work, "serve14_rows.npz")) as z:
+        got = {k: z[k] for k in z.files}
+    for key, rows in sorted(got.items()):
+        c, n = (int(x) for x in key.split("_"))
+        want = single(*serve_requests(single, n, 1400 + c))
+        scale = max(1.0, float(np.abs(want).max()))
+        err = float(np.abs(rows - want).max())
+        worst = max(worst, err / scale)
+        if rows.shape != want.shape or not err <= 1e-3 * scale:
+            failures.append("rows of %s: shape %s vs %s, max abs %.3g of "
+                            "scale %.3g" % (key, rows.shape, want.shape, err,
+                                            scale))
+    one = serve_mod.selftest(single, item_counts=SERVE_ITEMS,
+                             duration_s=SERVE_SELFTEST_S,
+                             concurrency=SERVE_SELFTEST_CONCURRENCY)
+    del single
+    torch.cuda.empty_cache()
+    results["serve_mesh"] = {
+        "ranks_s": ranks_s, "export_s": head["export_s"],
+        "waited_s": head["waited_s"], "serve_s": head["serve_s"],
+        "load_s": head["load_s"], "clients_s": head["clients_s"],
+        "calls_per_rank": calls[0], "device_calls": head["device_calls"],
+        "coalesced": head["coalesced"], "latencies": head["latencies"],
+        "rows_worst_share_of_scale": worst, "selftest_mesh": head["selftest"],
+        "selftest_single": one}
+    log("  4 gloo ranks on %s, (2, 2) float32 artifact of phase 12's "
+        "checkpoint: export %.1f s, load %.1f s (beside the resumed runs), "
+        "then serving %.1f s; all ranks %.1f s; %d "
+        "requests of %s items in %.1f s, device calls by bucket %s, %d "
+        "coalesced; rows vs the single-process module: worst %.3g of "
+        "max(1, max|logit|); every call on every rank launched %s (%d "
+        "calls a rank)"
+        % (MESH_DEVICE, head["export_s"], head["load_s"], head["serve_s"],
+           ranks_s,
+           len(head["status"]), list(SERVE_CLIENTS), head["clients_s"],
+           head["device_calls"], head["coalesced"], worst, VAL_WANT,
+           calls[0]))
+    for who, rows in (("4 ranks", head["selftest"]), ("1 process", one)):
+        for row in rows:
+            log("  selftest, %s: %d items a request, %.2f requests/s, p50 "
+                "%s ms, p99 %s ms, %d errors"
+                % (who, row["items_per_request"], row["rps"], row["p50_ms"],
+                   row["p99_ms"], row["errors"]))
+    if failures:
+        raise AssertionError("phase 14 serving over a mesh: %s" % failures)
+
+
+def phase_resume_serve(results, folder):
+    """Phase 14: resuming through optax's leaves, and tools.serve over a
+    mesh artifact."""
+    log("phase 14: resume through the optimizer's optax leaves; "
+        "tools.serve over a (2, 2) mesh artifact")
+    graphs_mod.Program.replay = _REPLAY
+    serving_ranks = _ServingRanks(folder)
+    serving_ranks.start()
+    word = "stop"
+    try:
+        _float32_exact()
+        t0 = time.monotonic()
+        out = {}
+        run = resume_run("full_width_bf16", TRAIN_CLIPS, "bfloat16", folder,
+                         resumed_from_capture=False)
+        out["full_width_bf16"] = check_resume(
+            "%d-clip bf16 step" % TRAIN_CLIPS, run, False)
+        del run
+        gc.collect()
+        torch.cuda.empty_cache()
+        run = resume_run("graphed_f32", GRAPH_CLIPS, "float32", folder,
+                         resumed_from_capture=True)
+        out["graphed_f32"] = check_resume(
+            "%d-clip float32 step, restored into a captured engine"
+            % GRAPH_CLIPS, run, True)
+        del run
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["resume_s"] = time.monotonic() - t0
+        results["resume"] = out
+        word = "go"
+        t0 = time.monotonic()
+        serve_over_mesh(results, serving_ranks)
+        results["serve_mesh"]["after_resume_s"] = time.monotonic() - t0
+    finally:
+        if word == "stop":
+            _say(serving_ranks.work, word)
+        serving_ranks.join()
+        torch.backends.cudnn.deterministic = False
+        graphs_mod.Program.replay = _metered_replay
+
+
 def kernel_entry(name, source, replaces, launches, cases, main_cases):
     """One kernel's line entry.  Times and bounds are for the launches of
     the main path's run (the sum over its launch sites); errors are the
@@ -5176,6 +5667,12 @@ def main(argv=None):
         phase_tools(results, folder)
         results["tools_phase_s"] = time.monotonic() - t0
         log("  phase 13 took %.1f s" % results["tools_phase_s"])
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.monotonic()
+        phase_resume_serve(results, folder)
+        results["resume_serve_phase_s"] = time.monotonic() - t0
+        log("  phase 14 took %.1f s" % results["resume_serve_phase_s"])
     finally:
         shutil.rmtree(folder, ignore_errors=True)
 

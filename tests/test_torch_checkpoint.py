@@ -47,6 +47,13 @@ def _engines(ema_decay=0.9, optimizer="adam"):
     return jeng, teng
 
 
+def _port_engine():
+    """A port Train of ``_engines``' configuration alone."""
+    ts, tmodel = flagship(compute_dtype="float32", optimizer="adam", **KW)
+    ts.train.ema_decay = 0.9
+    return ttrain.Train(ts, ts.feeder, tmodel, device="cpu", seed=1)
+
+
 def _perturbed(tree, seed):
     """``tree`` (JAX arrays) plus seeded noise, as numpy."""
     rs = np.random.RandomState(seed)
@@ -60,10 +67,10 @@ def _jax_flat(tree):
 
 
 def test_port_training_checkpoint_restores_into_jax(tmp_path):
-    """Train.state_dict (params, EMA, slots, step) saved by the port loads
-    into the JAX Train: every params/ and ema_params/ leaf is restored and
-    equals the port's after the layout change; only the optimizer slots
-    are reported missing on either side."""
+    """Train.state_dict (params, EMA, optimizer leaves, step) saved by the
+    port loads into the JAX Train: every params/, ema_params/ and
+    opt_state_leaves/ name is restored, and every parameter and EMA leaf
+    equals the port's after the layout change."""
     jeng, teng = _engines()
     with torch.no_grad():
         for i, (n, p) in enumerate(teng._flat.items()):
@@ -77,8 +84,10 @@ def test_port_training_checkpoint_restores_into_jax(tmp_path):
                                      loaded_out=loaded)
     jeng.load_state_dict(state, restored_names=loaded)
     names = set(ckpt.flatten_tree(teng.state_dict()["params"]))
+    leaves = len(teng.state_dict()["opt_state_leaves"])
     assert set(loaded) == ({"params/" + n for n in names} |
                            {"ema_params/" + n for n in names} |
+                           {"opt_state_leaves/%d" % i for i in range(leaves)} |
                            {"global_step"})
     port = ckpt.to_jax_flat({"params": teng.params,
                              "ema_params": ckpt.unflatten_tree(teng.ema)})
@@ -120,17 +129,30 @@ def test_jax_training_checkpoint_restores_into_the_port(tmp_path):
     assert w.is_contiguous(memory_format=torch.channels_last)
 
 
+def _randomized_slots(eng):
+    """Random moments and per-tier step counts 5, 6, ... in ``eng``."""
+    with torch.no_grad():
+        for i, (tier, st) in enumerate(sorted(eng.opt_state.items())):
+            st["count"].fill_(5 + i)
+            for slot in ("mu", "nu"):
+                for t in st[slot].values():
+                    t.copy_(torch.rand_like(t))
+
+
+def _assert_same_slots(a, b):
+    for tier, st in a.opt_state.items():
+        assert torch.equal(b.opt_state[tier]["count"], st["count"])
+        for slot in ("mu", "nu"):
+            for n, t in st[slot].items():
+                assert torch.equal(b.opt_state[tier][slot][n], t), n
+
+
 def test_port_checkpoint_round_trips_the_optimizer_slots(tmp_path):
     """The port's Adam slots (conv slots stored HWIO like the weights)
-    and step counts come back exactly into another port Train."""
-    _, a = _engines()
-    _, b = _engines()
-    with torch.no_grad():
-        for i, (tier, st) in enumerate(a.opt_state.items()):
-            st["count"] = 5 + i
-            for slot in ("mu", "nu"):
-                for n, t in st[slot].items():
-                    t.copy_(torch.rand_like(t))
+    and step counts, written as optax's leaves under
+    opt_state_leaves/<i>, come back exactly into another port Train."""
+    a, b = _port_engine(), _port_engine()
+    _randomized_slots(a)
     path = str(tmp_path / "a.ckpt")
     ckpt.save_checkpoint(path, a.state_dict())
     loaded = []
@@ -138,12 +160,44 @@ def test_port_checkpoint_round_trips_the_optimizer_slots(tmp_path):
                                               strict=True,
                                               loaded_out=loaded),
                       restored_names=loaded)
-    assert "opt_state/regular/mu/frames/dcnn/conv1/w" in loaded
+    leaves = ["opt_state_leaves/%d" % i
+              for i in range(len(a.state_dict()["opt_state_leaves"]))]
+    assert set(leaves) <= set(loaded)
+    assert not any(n.startswith("opt_state/") for n in loaded)
+    flat = ckpt.load_flat(path)
+    conv1_mu = a._opt_leaves.index(("regular", "mu", "frames/dcnn/conv1/w"))
+    assert flat["opt_state_leaves/%d" % conv1_mu].shape == (11, 11, 3, 96)
+    assert flat["opt_state_leaves/0"].dtype == np.int32
+    _assert_same_slots(a, b)
+
+
+def test_a_checkpoint_under_the_older_port_names_resumes(tmp_path):
+    """A checkpoint written under the port's older optimizer names
+    (opt_state/<tier>/count, opt_state/<tier>/{mu,nu}/<param>, the counts
+    int64) restores strictly, its slots read as optax's leaves, and
+    resumes with every slot and count."""
+    a, b = _port_engine(), _port_engine()
+    _randomized_slots(a)
+    old = a.state_dict()
+    del old["opt_state_leaves"]
+    old["opt_state"] = {}
     for tier, st in a.opt_state.items():
-        assert b.opt_state[tier]["count"] == st["count"]
+        old["opt_state"][tier + "/count"] = st["count"].clone()
         for slot in ("mu", "nu"):
             for n, t in st[slot].items():
-                assert torch.equal(b.opt_state[tier][slot][n], t), n
+                old["opt_state"]["%s/%s/%s" % (tier, slot, n)] = t.clone()
+    path = str(tmp_path / "old.ckpt")
+    ckpt.save_checkpoint(path, old)
+    assert "opt_state/regular/mu/frames/dcnn/conv1/w" in \
+        ckpt.get_checkpoint_tensor_names(path)
+    loaded = []
+    b.load_state_dict(ckpt.restore_checkpoint(path, b.state_dict(),
+                                              strict=True,
+                                              loaded_out=loaded),
+                      restored_names=loaded)
+    assert len([n for n in loaded if n.startswith("opt_state_leaves/")]) \
+        == len(b._opt_leaves)
+    _assert_same_slots(a, b)
 
 
 def test_ema_is_seeded_at_the_restored_params_as_in_jax(tmp_path):

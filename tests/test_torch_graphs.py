@@ -120,10 +120,21 @@ def test_compile_scan_steps_equals_as_many_run_steps_without_dropout():
     rows = [b.run_step(dict(feed)) for _ in range(2)]
     for k in stacked:
         assert list(stacked[k]) == [np.float32(r[k]) for r in rows], k
-    sa, sb = a.state_dict(), b.state_dict()
-    for part in ("params", "opt_state", "ema_params"):
-        for k, v in sa[part].items():
-            assert torch.equal(v, sb[part][k]), (part, k)
+    sa, sb = _state_parts(a.state_dict()), _state_parts(b.state_dict())
+    assert sorted(sa) == sorted(sb)
+    for k, v in sa.items():
+        assert torch.equal(v, sb[k]), k
+
+
+def _state_parts(state):
+    """{part/name: tensor} of a ``state_dict``: the parameters, the EMA
+    and the optimizer's leaves by index."""
+    out = {"opt_state_leaves/%d" % i: v
+           for i, v in enumerate(state["opt_state_leaves"])}
+    for part in ("params", "ema_params"):
+        out.update({part + "/" + k: v
+                    for k, v in state.get(part, {}).items()})
+    return out
 
 
 # -------------------------------------------- (b) state written in place
@@ -319,15 +330,16 @@ def _card_engines(card, **opts):
 
 
 def _assert_states_close(eager, graphed, start):
-    se, sg = eager.state_dict(), graphed.state_dict()
-    for part in ("params", "opt_state", "ema_params"):
-        for k, v in se.get(part, {}).items():
-            if not v.is_floating_point():
-                assert torch.equal(v, sg[part][k]), (part, k)
-                continue
-            moved = float((v - start[part][k]).abs().max())
-            tol = 1e-3 * moved + 1e-7 * float(v.abs().max())
-            assert float((sg[part][k] - v).abs().max()) <= tol, (part, k)
+    se = _state_parts(eager.state_dict())
+    sg = _state_parts(graphed.state_dict())
+    start = _state_parts(start)
+    for k, v in se.items():
+        if not v.is_floating_point():
+            assert torch.equal(v, sg[k]), k
+            continue
+        moved = float((v - start[k]).abs().max())
+        tol = 1e-3 * moved + 1e-7 * float(v.abs().max())
+        assert float((sg[k] - v).abs().max()) <= tol, k
 
 
 @pytest.mark.cuda

@@ -287,13 +287,14 @@ def test_every_device_option_defaults_to_cuda():
 
 
 def test_new_entry_points_refuse_cpu_unless_asked(tmp_path):
-    """The dry run, the checkpoint evaluation, validate_pretrained and
-    profile_ablation raise without a card unless given the CPU (no rank
-    and no model is started first)."""
+    """The dry run, the checkpoint evaluation, validate_pretrained,
+    profile_ablation and ``parallel.launch.run`` raise without a card
+    unless given the CPU (no rank and no model is started first)."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present; this checks the refusal "
                     "on a machine without one")
     import json
+    from video_learning_tpu_torch.parallel import launch
     from video_learning_tpu_torch.tools import (
         dryrun_multichip, evaluate_multiple_checkpoints, profile_ablation,
         validate_checkpoints, validate_pretrained)
@@ -308,7 +309,8 @@ def test_new_entry_points_refuse_cpu_unless_asked(tmp_path):
                                                     str(tmp_path)]),
                  lambda: validate_pretrained.main([str(tmp_path / "w")]),
                  lambda: profile_ablation.main([]),
-                 lambda: profile_ablation.main(["--per-layer"])):
+                 lambda: profile_ablation.main(["--per-layer"]),
+                 lambda: launch.run(2, "json:dumps")):
         with pytest.raises(FrameworkError, match="device='cpu'"):
             call()
 

@@ -58,8 +58,9 @@ def test_two_ranks_refuse_graphs_and_an_unfilled_mesh():
     raises in ``Train``, ``Validation`` and ``ServingModule`` with the
     reason (gloo runs its collectives on the host); ``Train`` defaults to
     the eager step."""
-    for res in launch.run(2, "torch_mesh_worker:guards", backend="gloo",
-                          threads=2, timeout=300, path=TESTS):
+    for res in launch.run(2, "torch_mesh_worker:guards", device="cpu",
+                          backend="gloo", threads=2, timeout=300,
+                          path=TESTS):
         assert "does not fill the world of 2" in res["unfilled"]
         for key in ("train", "val", "serve"):
             assert "graphs=True on a mesh of 2 ranks" in res[key], key

@@ -21,6 +21,7 @@ import sys
 import numpy as np
 import pytest
 
+import torch_mesh_worker as worker
 from test_torch_run_task import _pack, _run, _weights_npy, RAW, FRAMES
 from video_learning_tpu_torch import checkpoint as ckpt
 from video_learning_tpu_torch.config import Settings, ValOpts
@@ -92,8 +93,8 @@ def trained(packed, tmp_path_factory):
                            epochs=2)
     res = launch.run(2, "torch_mesh_worker:packed_training", {
         "config": cfg, "model_axis_config": model_cfg,
-        "folder": str(folder)}, backend="gloo", threads=2, timeout=600,
-        path=TESTS)
+        "folder": str(folder)}, device="cpu", backend="gloo", threads=2,
+        timeout=600, path=TESTS)
     return folder, data, res
 
 
@@ -209,7 +210,13 @@ def test_mesh_export_loads_and_serves_as_one_process(run_folder, tmp_path):
     mesh, ``serving.load`` rebuilds it in the group, and a call with the
     whole batch gives every rank the logits of the single-process
     artifact of the same checkpoint; a bucket whose rows the data axis
-    does not divide is refused with JAX's message."""
+    does not divide is refused with JAX's message.  ``tools.serve`` of
+    the mesh artifact: rank 0 answers concurrent requests of 1, 2 and 3
+    items (coalesced) and one ``--no-batch`` request with the
+    single-process module's rows while rank 1 follows, both ranks
+    return after each stop, a dispatch idle past its keepalive still
+    serves, and when the follower fails rank 0 answers with errors
+    instead of hanging."""
     from video_learning_tpu_torch.serving import load
     from video_learning_tpu_torch.tools.export_serving import export
     folder, data, _, rf = run_folder
@@ -221,8 +228,8 @@ def test_mesh_export_loads_and_serves_as_one_process(run_folder, tmp_path):
         json.dump(doc, f)
     out = str(tmp_path / "mesh.zip")
     res = launch.run(2, "torch_mesh_worker:mesh_export", {
-        "config": cfg, "out": out}, backend="gloo", threads=2, timeout=600,
-        path=TESTS)
+        "config": cfg, "out": out}, device="cpu", backend="gloo",
+        threads=2, timeout=600, path=TESTS)
     single = str(tmp_path / "one.zip")
     meta = export(cfg, single, checkpoint="latest", batch_items=[2, 4],
                   device="cpu")
@@ -239,6 +246,25 @@ def test_mesh_export_loads_and_serves_as_one_process(run_folder, tmp_path):
         np.testing.assert_allclose(np.asarray(r["logits"]), want, rtol=0,
                                    atol=1e-5 * scale)
         assert "not divisible by the mesh data axis (2)" in r["refused"]
+    served = res[0]["served"]
+    assert served["status"] == [200] * len(worker.SERVE_ITEMS)
+    assert 'vlx_requests_total{status="200"} 3' in served["metrics"]
+    requests = worker.serve_requests(module.meta)
+    for got, arrays in zip(served["rows"], requests):
+        np.testing.assert_allclose(np.asarray(got), module(*arrays), rtol=0,
+                                   atol=1e-5 * scale)
+    assert served["no_batch"]["status"] == 200
+    np.testing.assert_allclose(np.asarray(served["no_batch"]["rows"]),
+                               module(*requests[1]), rtol=0,
+                               atol=1e-5 * scale)
+    np.testing.assert_allclose(np.asarray(served["after_idle"]),
+                               module(*requests[0]), rtol=0,
+                               atol=1e-5 * scale)
+    # the warm-up's calls and the one after the idle ops
+    assert res[1]["served"]["followed_after_idle"] == \
+        len(module.meta["buckets"]) + 1
+    assert all(500 <= s < 600 for s in served["follower_failed"])
+    assert "simulated device fault" in res[1]["served"]["follower_error"]
 
 
 # -------------------------------------------------------------- dry run

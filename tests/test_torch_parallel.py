@@ -209,8 +209,8 @@ def runs(tmp_path_factory):
                                              decode=True)
 
     port = launch.run(4, "torch_mesh_worker:parity", {
-        "folder": folder, "configs": CONFIGS}, backend="gloo", threads=2,
-        timeout=900, path=TESTS)
+        "folder": folder, "configs": CONFIGS}, device="cpu", backend="gloo",
+        threads=2, timeout=900, path=TESTS)
     return folder, ref, start, port
 
 
@@ -425,7 +425,7 @@ def test_model_axis_input_gradient_is_all_reduced(tmp_path):
              labels=np.eye(CLASSES, dtype=np.int32)[[3, 7]])
     (res, _) = launch.run(2, "torch_mesh_worker:grads", {
         "folder": str(tmp_path), "mesh_shape": {"data": 1, "model": 2}},
-        backend="gloo", threads=2, timeout=600, path=TESTS)
+        device="cpu", backend="gloo", threads=2, timeout=600, path=TESTS)
     assert res["split"] == sharding.SHARDED_AT_MODEL_2["flagship"]
     worker.grads("cpu", str(tmp_path), {"data": 1, "model": 1},
                  check_imports=False)

@@ -164,8 +164,13 @@ def _run(folder, data_path, phase="train", resume=None, epochs=2,
 def _jax_init_checkpoint(folder, data_path, run_folders, **kw):
     """JAX init params at global step 0 with a .snap [0, 0, 0] in each of
     ``run_folders``' checkpoints, the starting point of both drivers."""
-    import jax
     path, _ = _run(os.path.join(str(folder), "init"), data_path, **kw)
+    return _init_checkpoints(path, run_folders)
+
+
+def _init_checkpoints(path, run_folders):
+    """``_jax_init_checkpoint`` of the run config at ``path``."""
+    import jax
     settings = JSettings()
     settings.initialize(path)
     params = JModel(settings).init_params(jax.random.PRNGKey(7))
@@ -514,3 +519,123 @@ def test_caption_train_and_val_phases_as_jax(tmp_path):
             out[who] = (res, json.load(f))
     assert len(out["port"][0]) == 6
     assert out["port"] == out["jax"]
+
+
+# ------------------------------------------------------------ two streams
+@pytest.fixture
+def two_threads():
+    """Two intra-op torch threads: the suite runs six workers on the
+    machine's cores, and more threads a worker only contend."""
+    import torch
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
+def _twostream_run(folder, main_path, aux_path, weights, resume="latest"):
+    """JAX ``tests/test_multiinput_e2e.py``'s two-stream run as a JSON
+    config: video frames on main and images on aux, each through AlexNet
+    to fc6 from ``weights`` (``_weights_npy``), fused by ``ibias`` into a
+    1x24 LSTM; 2 classes, 2 epochs of 2 steps, SGD, dropout off, a
+    save per epoch, resumed from ``resume``.  Returns (path, run
+    folder)."""
+    def dataset(path, tag):
+        return {"data_path": path, "raw_image_shape": "(112, 112, 3)",
+                "image_shape": "(96, 96, 3)",
+                "mean_image": [99.0, 99.0, 99.0],
+                "data_format": "defs.data_format.tfrecord",
+                "frame_format": "jpg",
+                "imgproc": ["defs.imgproc.center_crop",
+                            "defs.imgproc.sub_mean"],
+                "batch_item": "defs.batch_item.default",
+                "phase": "defs.phase.train",
+                "tag": "defs.dataset_tag.%s" % tag}
+
+    def dcnn(tag):
+        return {"input": "defs.dataset_tag.%s" % tag,
+                "representation": "defs.representation.dcnn",
+                "frame_encoding_layer": "fc6", "weights_file": weights}
+
+    run_folder = os.path.join(str(folder), "run")
+    cfg = {"run": {
+        "resume_file": resume, "run_folder": run_folder, "run_id": "ts",
+        "seed": 1, "mesh_shape": {"data": 1}, "compute_dtype": "float32",
+        "phase": "defs.phase.train",
+        "data": {"frames_set": dataset(main_path, "main"),
+                 "specs_set": dataset(aux_path, "aux")},
+        "network": {"num_classes": 2, "pipelines": [
+            {"frames": dcnn("main")}, {"spectros": dcnn("aux")},
+            {"combo": {"input": ["frames", "spectros"],
+                       "representation": "defs.representation.nop",
+                       "input_fusion": "defs.fusion_method.ibias",
+                       "classifier": "defs.classifier.lstm",
+                       "lstm_params": [24, 1, "defs.fusion_method.avg"]}}]},
+        "train": {"batch_size": 2, "epochs": 2,
+                  "optimizer": "defs.optim.sgd", "base_lr": 0.001,
+                  "lr_mult": None, "lr_decay": None, "clip_norm": 5,
+                  "dropout_keep_prob": 1.0},
+        "val": {"batch_size": 2, "logits_save_interval": -1,
+                "clip_fusion": ["defs.fusion_type.late",
+                                "defs.fusion_method.avg"]},
+        "logging": {"save_freq_per_epoch": 1, "level": "logging.INFO",
+                    "tensorboard_folder": "tb"}}}
+    os.makedirs(str(folder), exist_ok=True)
+    path = os.path.join(str(folder), "train.json")
+    with open(path, "w") as f:
+        json.dump(cfg, f, indent=1)
+    return path, run_folder
+
+
+def test_two_streams_train_alike_in_both_drivers(tmp_path, two_threads):
+    """JAX ``tests/test_multiinput_e2e.py``'s run (4 videos of 8 112x112
+    frames on main, one image a video on aux, ibias fusion into an LSTM)
+    for 2 epochs through both drivers from one JAX init checkpoint: the
+    losses within 1e-5 relative, every parameter within 1.2e-3
+    normwise, the step counts equal."""
+    from PIL import Image
+    from tests.conftest import make_image
+    main_dir, aux_dir = tmp_path / "main", tmp_path / "aux"
+    lines = {"main": [], "aux": []}
+    for v in range(4):
+        vdir = main_dir / ("vid%d" % v)
+        vdir.mkdir(parents=True)
+        for i in range(8):
+            Image.fromarray(make_image(112, 112, seed=v * 31 + i)).save(
+                vdir / ("f_%04d.jpg" % i), quality=95)
+        lines["main"].append("%s %d\n" % (vdir, v % 2))
+        aux_dir.mkdir(exist_ok=True)
+        spec = aux_dir / ("spec_%d.jpg" % v)
+        Image.fromarray(make_image(112, 112, seed=900 + v)).save(
+            spec, quality=95)
+        lines["aux"].append("%s %d\n" % (spec, v % 2))
+    trees = {}
+    for name, folder, fpc, mode in (("main", main_dir, 4, "rand_clips"),
+                                    ("aux", aux_dir, 1, "iterative")):
+        trees[name] = folder / ("%s.train" % name)
+        trees[name].write_text("".join(lines[name]))
+        _pack(folder, trees[name], fpc=fpc, cpv=1, raw=112, mode=mode)
+    weights = _weights_npy(tmp_path)
+    jcfg, jrf = _twostream_run(tmp_path / "jax", str(trees["main"]),
+                               str(trees["aux"]), weights)
+    tcfg, trf = _twostream_run(tmp_path / "port", str(trees["main"]),
+                               str(trees["aux"]), weights)
+    icfg, _ = _twostream_run(tmp_path / "init", str(trees["main"]),
+                             str(trees["aux"]), weights, resume=None)
+    _init_checkpoints(icfg, [jrf, trf])
+    jrun.main(jcfg)
+    trun.main(tcfg, device="cpu")
+
+    jm, tm = _metrics(jrf), _metrics(trf)
+    assert [m["step"] for m in tm] == [m["step"] for m in jm] == [1, 2, 3, 4]
+    for a, b in zip(tm, jm):
+        assert a["loss"] == pytest.approx(b["loss"], rel=1e-5)
+    jflat = jckpt.load_flat(_latest(jrf))
+    tflat = jckpt.load_flat(_latest(trf))
+    assert sorted(tflat) == sorted(jflat)
+    leaves = [k for k in jflat if k.startswith("params/")]
+    assert any(k.startswith("params/spectros/") for k in leaves)
+    assert any(k.startswith("params/combo/lstm/") for k in leaves)
+    for k in leaves:
+        assert _normwise(tflat[k], jflat[k]) <= 1.2e-3, k
+    assert int(tflat["global_step"]) == int(jflat["global_step"]) == 4

@@ -207,11 +207,142 @@ def packed_training(device, config, model_axis_config, folder):
             "model_axis": model_axis, "mesh": engine.mesh.shape}
 
 
+# items of the requests served over the mesh, posted concurrently
+SERVE_ITEMS = (1, 2, 3)
+
+
+def serve_requests(meta, seed=1):
+    """The arrays of one request of each of ``SERVE_ITEMS`` items, from
+    ``RandomState(seed)``."""
+    rs = np.random.RandomState(seed)
+    per = [s["shape"][0] // meta["batch_items"] for s in meta["inputs"]]
+    return [[rs.randint(0, 255, [p * n] + s["shape"][1:]).astype(s["dtype"])
+             for p, s in zip(per, meta["inputs"])] for n in SERVE_ITEMS]
+
+
+def _post(addr, arrays):
+    """POST ``arrays`` as npz to /predict; (status, JSON reply)."""
+    import http.client
+    import io
+    import json
+    buf = io.BytesIO()
+    np.savez(buf, *arrays)
+    conn = http.client.HTTPConnection(*addr, timeout=120)
+    try:
+        conn.request("POST", "/predict", body=buf.getvalue(),
+                     headers={"Content-Type": "application/x-npz"})
+        r = conn.getresponse()
+        return r.status, json.loads(r.read().decode("utf-8"))
+    finally:
+        conn.close()
+
+
+def _metrics(addr):
+    import http.client
+    conn = http.client.HTTPConnection(*addr, timeout=60)
+    try:
+        conn.request("GET", "/metrics")
+        return conn.getresponse().read().decode("utf-8")
+    finally:
+        conn.close()
+
+
+def _serve_and_post(module, requests, **kw):
+    """Rank 0: ``tools.serve.serve`` of ``module`` on port 0 in a thread,
+    the ``requests`` posted concurrently, then /metrics and the
+    shutdown; returns ([(status, reply)], metrics text)."""
+    import threading
+    from video_learning_tpu_torch.tools import serve as serve_mod
+    started = threading.Event()
+    server = threading.Thread(target=serve_mod.serve, args=(module,),
+                              kwargs=dict(port=0, started=started, **kw))
+    server.start()
+    assert started.wait(300)
+    replies = [None] * len(requests)
+
+    def post(i):
+        replies[i] = _post(started.addr, requests[i])
+
+    clients = [threading.Thread(target=post, args=(i,))
+               for i in range(len(requests))]
+    for c in clients:
+        c.start()
+    for c in clients:
+        c.join()
+    text = _metrics(started.addr)
+    started.httpd.shutdown()
+    server.join(120)
+    assert not server.is_alive()
+    return replies, text
+
+
+class _Faulty:
+    """A follower's module whose calls after the warm-up's fail as a lost
+    device would."""
+
+    def __init__(self, module):
+        self.module = module
+        self.calls = 0
+
+    def __getattr__(self, name):
+        return getattr(self.module, name)
+
+    def __call__(self, *arrays):
+        self.calls += 1
+        if self.calls > len(self.module.buckets):
+            raise RuntimeError("simulated device fault on a follower")
+        return self.module(*arrays)
+
+
+def serve_over_mesh(module):
+    """``tools.serve`` of a mesh module: rank 0 serves and posts
+    ``SERVE_ITEMS`` requests concurrently (the batcher coalescing), then
+    one ``--no-batch`` request; the other ranks follow and return after
+    each stop.  A dispatch idle past its keepalive still serves.  Then a
+    follower fails on its first call and leaves the group: rank 0's
+    requests are answered 5xx, and nothing hangs."""
+    import time
+    import torch.distributed as dist
+    from video_learning_tpu_torch.tools import serve as serve_mod
+    requests = serve_requests(module.meta)
+    rank = dist.get_rank()
+    out = {}
+    if rank == 0:
+        replies, text = _serve_and_post(module, requests, window_ms=200.0)
+        out["rows"] = [r[1]["outputs"] for r in replies]
+        out["status"] = [r[0] for r in replies]
+        out["metrics"] = text
+        replies, _ = _serve_and_post(module, requests[1:2], coalesce=False)
+        out["no_batch"] = {"status": replies[0][0],
+                           "rows": replies[0][1]["outputs"]}
+        keepalive, serve_mod.KEEPALIVE_S = serve_mod.KEEPALIVE_S, 0.2
+        dispatch = serve_mod.MeshDispatch(module)
+        dispatch.warmup()
+        time.sleep(1.0)         # idle: the keepalive sends idle ops
+        out["after_idle"] = dispatch(*requests[0]).tolist()
+        dispatch.stop()
+        serve_mod.KEEPALIVE_S = keepalive
+        replies, _ = _serve_and_post(module, requests[:2],
+                                     request_timeout_s=60)
+        out["follower_failed"] = [r[0] for r in replies]
+    else:
+        for _ in range(2):
+            assert serve_mod.serve(module) is None
+        out["followed_after_idle"] = serve_mod.MeshDispatch(module).follow()
+        try:
+            serve_mod.serve(_Faulty(module))
+        except RuntimeError as e:
+            out["follower_error"] = str(e)
+            dist.destroy_process_group()
+    return out
+
+
 def mesh_export(device, config, out):
     """``export_serving.export`` of ``config``'s latest checkpoint over a
     (2, 1) mesh to ``out``, then ``serving.load`` of it in this group and
     a call with the whole batch of ``RandomState(0)`` frames; and the
-    refusal of a bucket whose rows the data axis does not divide."""
+    refusal of a bucket whose rows the data axis does not divide.  Then
+    the artifact served over the mesh (``serve_over_mesh``)."""
     from video_learning_tpu_torch.parallel.mesh import make_mesh
     from video_learning_tpu_torch.serving import ServingModule, load
     from video_learning_tpu_torch.tools.export_serving import export
@@ -232,11 +363,12 @@ def mesh_export(device, config, out):
         refused = None
     except FrameworkError as e:
         refused = str(e)
+    result = {"meta_mesh": meta.get("mesh"),
+              "loaded_mesh": module.meta.get("mesh"),
+              "bucket": module.last_bucket, "logits": logits.tolist(),
+              "refused": refused, "served": serve_over_mesh(module)}
     _no_jax()
-    return {"meta_mesh": meta.get("mesh"),
-            "loaded_mesh": module.meta.get("mesh"),
-            "bucket": module.last_bucket, "logits": logits.tolist(),
-            "refused": refused}
+    return result
 
 
 def guards(device):

@@ -19,9 +19,14 @@ leaf whose shape differs is reported and left as it is.
 ``prepare_eval_state`` / ``select_eval_params`` choose between the EMA
 and the live weights for an evaluation, ``AsyncSaver`` writes on a
 thread, and ``delete_checkpoint`` removes a checkpoint and its ``.snap``.
-The optimizer slots of ``Train.state_dict`` keep the port's names
-(``opt_state/<tier>/...``); a JAX restore of a port checkpoint loads its
-parameters and EMA and warns about the slots.
+The optimizer state of ``Train.state_dict`` is JAX's: the leaves of
+the optax state in optax's order (``train.opt_state_leaf_list``) under
+``opt_state_leaves/<i>``, the step counts int32 and the slots float32
+in the JAX layouts, so a training checkpoint has exactly the JAX
+package's names and resumes in either package.  A checkpoint written
+under the port's older names (``opt_state/<tier>/count``,
+``opt_state/<tier>/{mu,nu}/<param>``) is read with those leaves renamed
+into that order.
 """
 
 import os
@@ -75,6 +80,25 @@ def unflatten_tree(flat):
         return node
 
     return listify(root)
+
+
+def tree_order(names):
+    """``names`` (flat slash-joined paths) in the order
+    ``jax.tree_util.tree_flatten`` visits the tree they make: dict keys
+    sorted at every level, and a list (a level keyed exactly 0..n-1,
+    as ``unflatten_tree`` builds it) by index, so ``cells/10`` comes
+    after ``cells/9``."""
+    def walk(node):
+        if isinstance(node, list):
+            for v in node:
+                yield from walk(v)
+        elif isinstance(node, dict):
+            for k in sorted(node):
+                yield from walk(node[k])
+        else:
+            yield node
+
+    return list(walk(unflatten_tree({n: n for n in names})))
 
 
 def from_jax_flat(flat, device="cuda"):
@@ -172,6 +196,44 @@ def _into_port_layout(value, current):
     return t.to(current.device)
 
 
+_OLD_OPT = "opt_state" + _SEP
+_OPT_LEAVES = "opt_state_leaves"
+
+
+def _renamed_old_opt_state(saved):
+    """``saved`` with the port's older optimizer names
+    (``opt_state/<tier>/count``, ``opt_state/<tier>/{mu,nu}/<param>``)
+    renamed ``opt_state_leaves/<i>`` in optax's order, the counts int32.
+    The optimizer of each tier follows from its slots: mu (Adam and
+    AdamW, whose leaves are alike), nu alone (RMSProp) or none (SGD)."""
+    old = {k[len(_OLD_OPT):]: v for k, v in saved.items()
+           if k.startswith(_OLD_OPT)}
+    if not old:
+        return saved
+    # train imports this module
+    from video_learning_tpu_torch.train import opt_state_leaf_list
+    slots, labels = {}, {}
+    for key in old:
+        tier, slot, *name = key.split(_SEP, 2)
+        slots.setdefault(tier, set()).add(slot)
+        if name:
+            labels[name[0]] = tier
+    kinds = {tier: "adam" if "mu" in s else "rmsprop" if "nu" in s
+             else "sgd" for tier, s in slots.items()}
+    out = {k: v for k, v in saved.items() if not k.startswith(_OLD_OPT)}
+    entries = opt_state_leaf_list(kinds, labels)
+    for i, (tier, slot, name) in enumerate(entries):
+        if slot == "count":
+            out["%s/%d" % (_OPT_LEAVES, i)] = np.asarray(
+                old[tier + _SEP + slot], np.int32)
+        else:
+            out["%s/%d" % (_OPT_LEAVES, i)] = old[_SEP.join((tier, slot,
+                                                             name))]
+    info("Checkpoint holds the port's older optimizer names; read as "
+         "%d optax leaves" % len(entries))
+    return out
+
+
 def restore_checkpoint(path, state, ignorable_names=None, strict=False,
                        loaded_out=None):
     """Load ``path`` into ``state`` (a mutable dict/list tree) by name:
@@ -179,9 +241,11 @@ def restore_checkpoint(path, state, ignorable_names=None, strict=False,
     names containing one of ``ignorable_names`` are skipped, and a leaf
     whose shape differs after the layout change is reported (raised with
     ``strict``) and kept.  ``loaded_out`` (a list) receives the names
-    actually loaded.  Returns ``state``."""
+    actually loaded.  A file under the port's older optimizer names is
+    read as ``opt_state_leaves`` (module docstring).  Returns
+    ``state``."""
     ignorable_names = ignorable_names or []
-    saved = load_flat(path)
+    saved = _renamed_old_opt_state(load_flat(path))
     slots = _slots(state)
 
     def ignorable(name):

@@ -26,7 +26,7 @@ import tempfile
 import time
 import traceback
 
-from video_learning_tpu_torch.utils import error
+from video_learning_tpu_torch.utils import error, resolve_device
 
 
 def free_port():
@@ -54,11 +54,14 @@ def rank_env(rank, world_size, port, threads=None, path=None):
     return env
 
 
-def run(n, target, kwargs=None, device="cpu", backend=None, timeout=600,
+def run(n, target, kwargs=None, device="cuda", backend=None, timeout=600,
         threads=None, path=None):
     """Run ``target`` ("module:function") as ``n`` ranks and return their
-    results (a list, rank order).  ``path``: a folder to put before the
-    ranks' ``PYTHONPATH`` (where ``target``'s module lives)."""
+    results (a list, rank order).  ``device`` is the card unless
+    ``device="cpu"`` (it raises without one, before a rank starts);
+    ``path``: a folder to put before the ranks' ``PYTHONPATH`` (where
+    ``target``'s module lives)."""
+    device = str(resolve_device(device))
     port = free_port()
     with tempfile.TemporaryDirectory(prefix="vlt_ranks_") as folder:
         spec = os.path.join(folder, "spec.json")

@@ -27,6 +27,8 @@ the same parameter slices and different rows).
 * ``use(mesh)`` makes a mesh current for ``Model.apply``; the int8 layers
   take the MAX of their activation amax over the data group from it, so
   that every rank quantizes with the amax of the global batch.
+* ``broadcast_ints`` and ``broadcast_array`` send rank 0's host values to
+  every rank (``tools/serve`` hands each request batch to the ranks so).
 
 Only ``all_reduce``, the list form of ``all_gather``, ``broadcast`` and
 ``barrier`` are used: gloo offers them on CUDA tensors too.
@@ -36,6 +38,7 @@ import contextlib
 import os
 import threading
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -250,6 +253,42 @@ def shard_feed(feed, mesh):
         else:
             out[k] = v
     return out
+
+
+# ------------------------------------------------- host values to every rank
+def _wire_device():
+    """Where a broadcast's tensor lives: the rank's card under NCCL, the
+    host under gloo."""
+    if dist.get_backend() == "nccl":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device("cpu")
+
+
+def broadcast_ints(values, length, src=0):
+    """Rank ``src``'s list of at most ``length`` ints (``values``; the
+    other ranks pass None) on every rank, zero-padded to ``length``: one
+    broadcast over the world group."""
+    t = torch.zeros(length, dtype=torch.int64, device=_wire_device())
+    if dist.get_rank() == src:
+        if len(values) > length:
+            error("%d ints do not fit a broadcast of %d"
+                  % (len(values), length))
+        t[:len(values)] = torch.tensor(values, dtype=torch.int64)
+    dist.broadcast(t, src)
+    return t.tolist()
+
+
+def broadcast_array(array, shape, dtype, src=0):
+    """Rank ``src``'s numpy ``array`` (the other ranks pass None) as a
+    numpy array on every rank; every rank knows its ``shape`` and
+    ``dtype``."""
+    if dist.get_rank() == src:
+        t = torch.from_numpy(np.ascontiguousarray(array)).to(_wire_device())
+    else:
+        t = torch.empty(tuple(shape), dtype=torch.from_numpy(
+            np.zeros(0, dtype)).dtype, device=_wire_device())
+    dist.broadcast(t, src)
+    return t.cpu().numpy()
 
 
 # ------------------------------------------------------ the current mesh

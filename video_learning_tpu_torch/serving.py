@@ -422,12 +422,14 @@ class ServingModule:
         item."""
         return self.captions_from_ids(self(*arrays))
 
-    def warmup(self):
+    def warmup(self, call=None):
         """Run zeros through every bucket, smallest first, which captures
         each bucket's graph when graphs are on; returns the largest
-        bucket's output."""
+        bucket's output.  ``call`` makes the calls instead of the module
+        (``tools/serve``'s dispatch to the ranks of a mesh)."""
+        call = call or self
         for bucket in self.buckets:
-            out = self(*[np.zeros([s["shape"][0] * bucket //
+            out = call(*[np.zeros([s["shape"][0] * bucket //
                                    self.batch_items] + s["shape"][1:],
                                   s["dtype"])
                          for s in self.meta["inputs"]])

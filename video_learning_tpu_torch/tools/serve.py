@@ -42,6 +42,20 @@ multiples of the per-item row counts in ``meta['inputs']``.
 server in-process on an ephemeral port, closed-loop client threads
 posting npz bodies of each request size, and one JSON line per size with
 the sustained requests/s, items/s and p50 / p99 latency.
+
+A mesh artifact (``export_serving --mesh``) is served by as many ranks
+as its mesh holds, each of which loads it:
+
+  python -m torch.distributed.run --nproc-per-node 4 \
+      -m video_learning_tpu_torch.tools.serve mesh.zip \
+      [--device cuda:0 --backend gloo] [--selftest ...]
+
+The module on a mesh is a collective that every rank calls with the
+whole batch.  Rank 0 binds the server and runs the batcher; every device
+call it makes goes through ``MeshDispatch``, which broadcasts the call
+to the other ranks first, and those ranks follow (``MeshDispatch.follow``)
+until rank 0 broadcasts the stop at its shutdown (a SIGTERM drain
+included).  A world of one joins nothing and serves as above.
 """
 
 import argparse
@@ -49,13 +63,17 @@ import http.client
 import io
 import json
 import queue
+import signal
 import threading
 import time
 
 import numpy as np
 
+from video_learning_tpu_torch.parallel import mesh as mesh_mod
 from video_learning_tpu_torch.tools.combine_logits import load_class_map
-from video_learning_tpu_torch.utils import ensure_console_logging, error, info
+from video_learning_tpu_torch.utils import (FrameworkError,
+                                            ensure_console_logging, error,
+                                            info, warning)
 
 
 class Stats:
@@ -273,6 +291,156 @@ class Batcher:
                 return
 
 
+# the ops of the header rank 0 broadcasts before each device call on a mesh
+_OP_STOP, _OP_CALL, _OP_IDLE = 0, 1, 2
+_HEADER_INTS = 32
+# seconds without a call after which rank 0 sends an idle op: well inside
+# the group's timeout (torch's default, 30 minutes), which a follower's
+# wait for the next call would otherwise reach on an idle server
+KEEPALIVE_S = 60.0
+# the artifact's input dtypes, by their code in the header
+_DTYPES = ("uint8", "int32", "float32")
+
+
+class MeshDispatch:
+    """The device calls of a ``ServingModule`` on a mesh, where every rank
+    calls the module with the whole batch (``serving.py``).
+
+    On rank 0 the dispatch stands in for the module (its other attributes
+    are the module's): each call, under one lock, broadcasts a header (the
+    op, then each input's dtype and shape at request size) and the arrays
+    over the world group, then calls the module, which pads to the
+    bucket, runs its rows and gathers.  The other ranks run ``follow``:
+    they take each header and its arrays, call the module with them and
+    drop the output, until the stop op that ``stop`` sends.  After
+    ``KEEPALIVE_S`` without a call rank 0 sends an idle op, so that no
+    follower waits longer than the group's timeout.  A collective that
+    fails breaks the dispatch: every later call raises at once, and no
+    request is served on rank 0 alone."""
+
+    def __init__(self, module):
+        self.module = module
+        self._lock = threading.Lock()
+        self._failed = None
+        self._stopped = threading.Event()
+        self._last = time.monotonic()
+        self._keepalive = None
+
+    def __getattr__(self, name):
+        return getattr(self.module, name)
+
+    def _send(self, header, arrays=()):
+        """Broadcast ``header`` and ``arrays`` (under the lock); a failure
+        breaks the dispatch."""
+        if self._failed is not None:
+            raise RuntimeError("the mesh's ranks are out of step after a "
+                               "failed collective: %s" % self._failed)
+        try:
+            mesh_mod.broadcast_ints(header, _HEADER_INTS)
+            for a in arrays:
+                mesh_mod.broadcast_array(a, a.shape, a.dtype)
+        except Exception as e:
+            self._failed = e
+            raise
+        self._last = time.monotonic()
+
+    def __call__(self, *arrays):
+        arrays = [np.ascontiguousarray(a) for a in arrays]
+        header = [_OP_CALL, len(arrays)]
+        for a in arrays:
+            if a.dtype.name not in _DTYPES:
+                raise ValueError("input dtype %s is none of %s"
+                                 % (a.dtype, _DTYPES))
+            header += [_DTYPES.index(a.dtype.name), a.ndim, *a.shape]
+        with self._lock:
+            if self._stopped.is_set():
+                raise RuntimeError("the mesh dispatch has stopped")
+            self._send(header, arrays)
+            try:
+                return self.module(*arrays)
+            except FrameworkError:
+                raise           # refused on every rank, before a collective
+            except Exception as e:
+                self._failed = e
+                raise
+
+    def warmup(self):
+        """The module's warm-up, each call dispatched to every rank; then
+        the keepalive starts."""
+        out = self.module.warmup(call=self)
+        if self._keepalive is None:
+            self._keepalive = threading.Thread(
+                target=self._keep_alive, daemon=True, name="vlt-keepalive")
+            self._keepalive.start()
+        return out
+
+    def _keep_alive(self):
+        while not self._stopped.wait(KEEPALIVE_S / 4):
+            with self._lock:
+                if self._stopped.is_set() or self._failed is not None:
+                    return
+                if time.monotonic() - self._last >= KEEPALIVE_S:
+                    try:
+                        self._send([_OP_IDLE])
+                    except Exception:   # noqa: BLE001 - the next call says
+                        return
+
+    def stop(self):
+        """Rank 0: broadcast the stop op (once; not over a broken
+        group)."""
+        with self._lock:
+            if self._stopped.is_set():
+                return
+            self._stopped.set()
+            if self._failed is None:
+                self._send([_OP_STOP])
+        info("Mesh dispatch stopped; the other ranks return")
+
+    def follow(self):
+        """A rank other than 0: run every call rank 0 dispatches, until
+        its stop op; returns the number of calls.  A SIGTERM
+        (``torch.distributed.run`` forwards it to every rank) is left to
+        rank 0's drain, whose stop ends this loop."""
+        prev = None
+        try:
+            prev = signal.signal(signal.SIGTERM, lambda *a: info(
+                "SIGTERM: waiting for rank 0's stop"))
+        except ValueError:
+            pass                        # not the main thread
+        calls = 0
+        try:
+            while True:
+                h = mesh_mod.broadcast_ints(None, _HEADER_INTS)
+                if h[0] == _OP_STOP:
+                    break
+                if h[0] == _OP_IDLE:
+                    continue
+                arrays, i = [], 2
+                for _ in range(h[1]):
+                    dtype, ndim = _DTYPES[h[i]], h[i + 1]
+                    shape = h[i + 2:i + 2 + ndim]
+                    arrays.append(mesh_mod.broadcast_array(None, shape,
+                                                           dtype))
+                    i += 2 + ndim
+                calls += 1
+                try:
+                    self.module(*arrays)
+                except FrameworkError as e:
+                    warning("Follower: the module refused a call, as rank "
+                            "0's did: %s" % e)
+        finally:
+            if prev is not None:
+                signal.signal(signal.SIGTERM, prev)
+        info("Follower: rank 0 stopped after %d calls" % calls)
+        return calls
+
+
+def _on_mesh(module):
+    """The module's mesh when it spans more than one rank, else None."""
+    mesh = getattr(module, "mesh", None)
+    return mesh if mesh is not None and mesh.size > 1 else None
+
+
 def _softmax(x):
     x = np.asarray(x, np.float64)
     x = x - x.max(axis=-1, keepdims=True)
@@ -423,30 +591,48 @@ def serve(module, port=8000, host="127.0.0.1", classes=None, window_ms=3.0,
     loaded onto ``device``).  ``started`` (optional threading.Event) is set
     once listening, with ``.addr``, ``.httpd`` and ``.batcher`` attached;
     ``started.httpd.shutdown()`` then stops the loop, and the batcher's
-    worker is closed on the way out.
+    worker is closed on the way out.  A module on a mesh of more than
+    one rank is served by every rank: rank 0 serves through a
+    ``MeshDispatch`` and broadcasts the stop when it leaves; the others
+    follow and return None then.
 
     SIGTERM drains gracefully when serving from the main thread: the
     accept loop stops and in-flight requests finish."""
-    from http.server import ThreadingHTTPServer
-
     if isinstance(module, str):
         from video_learning_tpu_torch.serving import load
         module = load(module, device=device)
+    info("Serving module (inputs=%s, batch_items=%s, buckets=%s, "
+         "quantize=%s, mesh=%s); warming up..."
+         % ([i["name"] for i in module.meta["inputs"]],
+            module.meta["batch_items"], module.meta.get("buckets"),
+            module.meta.get("quantize"), module.meta.get("mesh")))
+    mesh = _on_mesh(module)
+    if mesh is None:
+        return _serve(module, port, host, classes, window_ms, coalesce,
+                      started, request_timeout_s)
+    dispatch = MeshDispatch(module)
+    if mesh.rank != 0:
+        dispatch.follow()
+        return None
+    try:
+        return _serve(dispatch, port, host, classes, window_ms, coalesce,
+                      started, request_timeout_s)
+    finally:
+        dispatch.stop()
+
+
+def _serve(module, port, host, classes, window_ms, coalesce, started,
+           request_timeout_s):
+    from http.server import ThreadingHTTPServer
 
     class _Server(ThreadingHTTPServer):
         daemon_threads = False      # wait for in-flight requests
         block_on_close = True
 
     idx2name = load_class_map(classes)[1] if classes else None
-    info("Serving module (inputs=%s, batch_items=%s, buckets=%s, "
-         "quantize=%s); warming up..."
-         % ([i["name"] for i in module.meta["inputs"]],
-            module.meta["batch_items"], module.meta.get("buckets"),
-            module.meta.get("quantize")))
     batcher = Batcher(module, window_s=window_ms / 1000.0, coalesce=coalesce,
                       request_timeout_s=request_timeout_s)
     httpd = _Server((host, port), make_handler(batcher, idx2name))
-    import signal
     prev_term = None
     try:
         prev_term = signal.signal(
@@ -484,13 +670,18 @@ def selftest(module, item_counts=(1, 8, 32), duration_s=8.0, concurrency=8,
     ``device``), drive it with ``concurrency`` closed-loop client threads
     posting npz bodies of each request size for ``duration_s`` seconds,
     and report the sustained requests/s, items/s, p50 and p99 latency
-    per size (one JSON line each, and the list of rows returned).  What
+    per size (one JSON line each, and the list of rows returned; the
+    ranks of a mesh other than 0 follow and return []).  What
     it measures beyond a device call: request parsing, the coalescing
     window, response encoding and the sockets.  Item counts beyond the
     module's capacity are clamped (a request cannot exceed one batch)."""
     if isinstance(module, str):
         from video_learning_tpu_torch.serving import load
         module = load(module, device=device)
+    mesh = _on_mesh(module)
+    if mesh is not None and mesh.rank != 0:
+        serve(module)           # follows rank 0's server until its stop
+        return []
     capacity = int(module.meta["batch_items"])
     per = [int(s["shape"][0]) // capacity for s in module.meta["inputs"]]
 
@@ -595,7 +786,13 @@ def main(argv=None):
     parser.add_argument("artifact", help="path to the artifact (.zip)")
     parser.add_argument("--port", type=int, default=8000)
     parser.add_argument("--host", default="127.0.0.1")
-    parser.add_argument("--device", default="cuda")
+    parser.add_argument("--device", default="cuda",
+                        help="torch device (default cuda; cpu to run on "
+                             "the CPU; cuda:0 puts every rank on card 0)")
+    parser.add_argument("--backend", choices=("nccl", "gloo"),
+                        help="process-group backend of a mesh artifact's "
+                             "ranks (default nccl on cuda, gloo on the "
+                             "cpu; gloo lets ranks share a card)")
     parser.add_argument("--classes", help="'classname index' map file "
                                           "for named top-k responses")
     parser.add_argument("--request-timeout-s", type=float, default=None,
@@ -614,6 +811,7 @@ def main(argv=None):
     parser.add_argument("--selftest-duration-s", type=float, default=8.0)
     parser.add_argument("--selftest-concurrency", type=int, default=8)
     args = parser.parse_args(argv)
+    device = mesh_mod.init_distributed(args.device, args.backend)
     if args.selftest:
         selftest(args.artifact,
                  item_counts=[int(x) for x in
@@ -621,12 +819,12 @@ def main(argv=None):
                  duration_s=args.selftest_duration_s,
                  concurrency=args.selftest_concurrency,
                  window_ms=args.window_ms, classes=args.classes,
-                 device=args.device)
+                 device=device)
         return
     serve(args.artifact, port=args.port, host=args.host,
           classes=args.classes, window_ms=args.window_ms,
           coalesce=not args.no_batch,
-          request_timeout_s=args.request_timeout_s, device=args.device)
+          request_timeout_s=args.request_timeout_s, device=device)
 
 
 if __name__ == "__main__":

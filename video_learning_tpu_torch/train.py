@@ -68,7 +68,8 @@ import torch
 
 from video_learning_tpu_torch import graphs as graphs_mod
 from video_learning_tpu_torch.batching import BatchGeometry
-from video_learning_tpu_torch.checkpoint import flatten_tree, unflatten_tree
+from video_learning_tpu_torch.checkpoint import (flatten_tree, tree_order,
+                                               unflatten_tree)
 from video_learning_tpu_torch.defs import defs
 from video_learning_tpu_torch.ops.preprocess import (make_preprocessor,
                                                      supports_device_path)
@@ -273,6 +274,14 @@ class Optimizer:
                           "modified": _Tier(train.optimizer, lr_array,
                                             train.lr_mult, wd)}
 
+    def leaf_list(self, names):
+        """``opt_state_leaf_list`` of this optimizer over the parameter
+        ``names``."""
+        labels = self.labels or dict.fromkeys(names, "regular")
+        return opt_state_leaf_list(
+            {tier: t.kind for tier, t in self.tiers.items()},
+            {n: labels[n] for n in names})
+
     def _split(self, tree):
         if self.labels is None:
             return {"regular": tree}
@@ -326,6 +335,33 @@ class Optimizer:
             updates.update(t.update(g_parts[tier], state[tier],
                                     p_parts[tier]))
         return updates
+
+
+def opt_state_leaf_list(kinds, labels):
+    """The leaves of the JAX optimizer state
+    (``jax.tree_util.tree_flatten`` of ``make_optimizer(...).init``) in
+    optax's order, as (tier, slot, parameter name or None) entries.
+    ``kinds``: {tier: optimizer}; ``labels``: {parameter name: tier}.
+    The clips hold no leaves; the tiers come in sorted order (the dict
+    of ``optax.multi_transform``; one tier is the base optimizer alone);
+    a tier's slots cover its own parameters in JAX's tree order
+    (``checkpoint.tree_order``), the others being masked out.  Per tier:
+    SGD the schedule's count; RMSProp nu, then the count; Adam and AdamW
+    the count of ``scale_by_adam``, mu, nu, then the schedule's count
+    (AdamW's masked decay holds none).  The port keeps one count per
+    tier, which stands for both."""
+    entries = []
+    for tier in sorted(kinds):
+        kind = kinds[tier]
+        names = tree_order(n for n, t in labels.items() if t == tier)
+        if kind in (defs.optim.adam, defs.optim.adamw):
+            entries.append((tier, "count", None))
+            entries += [(tier, slot, n) for slot in ("mu", "nu")
+                        for n in names]
+        elif kind == defs.optim.rmsprop:
+            entries += [(tier, "nu", n) for n in names]
+        entries.append((tier, "count", None))
+    return entries
 
 
 def make_label_tree(names, modified_prefixes):
@@ -446,6 +482,8 @@ class Train:
                                  make_label_tree(self._flat, modified))
         self.tx.mesh, self.tx.split = self.mesh, self._split
         self.opt_state = self.tx.init(self._flat)
+        # the optax leaves of the state, as checkpoints hold them
+        self._opt_leaves = self.tx.leaf_list(self._flat)
         self._ema_decay = float(getattr(settings.train, "ema_decay", 0.0)
                                 or 0.0)
         self.ema = ({n: p.detach().clone() for n, p in self._flat.items()}
@@ -834,48 +872,67 @@ class Train:
             self._split))
 
     def state_dict(self):
-        """{"params", "opt_state", "ema_params" (with the EMA),
-        "global_step"}: flat {name: CPU tensor} dicts in the port's
-        names and layouts (optimizer slots as "<tier>/<slot>/<param>"),
-        each tensor a copy, so later steps leave a snapshot being
-        written alone.  On a mesh the tensors are whole (collective: every
-        rank calls it), as one process would hold them."""
+        """{"params", "opt_state_leaves", "ema_params" (with the EMA),
+        "global_step"}: the parameters and the EMA as flat {name: CPU
+        tensor} dicts in the port's names and layouts, and the optimizer
+        state as the JAX package holds it, the optax leaves in optax's
+        order (``opt_state_leaf_list``; the step counts int32, Adam's
+        two counts both this tier's count).  Each tensor is a copy, so
+        later steps leave a snapshot being written alone.  On a mesh the
+        tensors are whole (collective: every rank calls it), as one
+        process would hold them."""
         def snap(t, name=None):
             return self._whole(name, t.detach()).to("cpu", copy=True)
 
-        opt = {}
-        for tier, st in self.opt_state.items():
-            opt[tier + "/count"] = snap(torch.as_tensor(st["count"]))
-            for slot in ("mu", "nu"):
-                for n, t in st.get(slot, {}).items():
-                    opt["%s/%s/%s" % (tier, slot, n)] = snap(t, n)
+        leaves = []
+        for tier, slot, name in self._opt_leaves:
+            st = self.opt_state[tier]
+            if slot == "count":
+                leaves.append(st["count"].detach().to("cpu", torch.int32,
+                                                      copy=True))
+            else:
+                leaves.append(snap(st[slot][name], name))
         out = {"params": {n: snap(p, n) for n, p in self._flat.items()},
-               "opt_state": opt, defs.names.global_step: self.global_step}
+               "opt_state_leaves": leaves,
+               defs.names.global_step: self.global_step}
         if self.ema is not None:
             out["ema_params"] = {n: snap(e, n) for n, e in self.ema.items()}
         return out
 
     def load_state_dict(self, state, restored_names=None):
         """Restore what ``state_dict`` returned (or a restore of a
-        checkpoint into it), into this engine's tensors.
-        ``restored_names``: the names ``restore_checkpoint`` loaded from
-        the file; when a checkpoint was restored and none of them is an
-        ``ema_params`` leaf, the EMA starts at the restored params (the
-        JAX ``Train.load_state_dict``).  Optimizer slots the state lacks
-        keep their values.  The tensors are whole; on a mesh each rank
-        takes its slices."""
-        opt = state.get("opt_state") or {}
+        checkpoint into it, a JAX package's included), into this
+        engine's tensors.  ``restored_names``: the names
+        ``restore_checkpoint`` loaded from the file; when a checkpoint
+        was restored and none of them is an ``ema_params`` leaf, the EMA
+        starts at the restored params (the JAX
+        ``Train.load_state_dict``).  ``opt_state_leaves`` is taken when
+        it holds as many leaves as this optimizer, as JAX takes it;
+        otherwise the optimizer state is kept (and that is logged).  A
+        tier's two Adam counts must agree.  The tensors are whole; on a
+        mesh each rank takes its slices."""
+        leaves = state.get("opt_state_leaves")
+        if leaves is not None and len(leaves) != len(self._opt_leaves):
+            info("The state holds %d optimizer leaves, this optimizer %d: "
+                 "the optimizer state is kept as it is"
+                 % (len(leaves), len(self._opt_leaves)))
+            leaves = None
         with torch.no_grad():
             for n, p in self._flat.items():
                 p.copy_(self._local(n, state["params"][n]))
-            for tier, st in self.opt_state.items():
-                if tier + "/count" in opt:
-                    st["count"].fill_(int(opt[tier + "/count"]))
-                for slot in ("mu", "nu"):
-                    for n, t in st.get(slot, {}).items():
-                        key = "%s/%s/%s" % (tier, slot, n)
-                        if key in opt:
-                            t.copy_(self._local(n, opt[key]))
+            counts = {}
+            for (tier, slot, name), v in zip(self._opt_leaves,
+                                              leaves or ()):
+                st = self.opt_state[tier]
+                if slot != "count":
+                    st[slot][name].copy_(self._local(name, v))
+                    continue
+                c = int(v)
+                if counts.setdefault(tier, c) != c:
+                    error("Optimizer tier %r holds two step counts, %d and "
+                          "%d; optax advances both together"
+                          % (tier, counts[tier], c))
+                st["count"].fill_(c)
             if self.ema is not None:
                 source = state.get("ema_params")
                 if restored_names and not any(
