@@ -10,12 +10,15 @@ Phases (each raises on failure; nothing is caught and passed over):
 2. each kernel against its plain PyTorch version on the card, at the
    shapes the serving and training paths give it (and smaller ones),
    with times beside the bound and the one-call library equivalent
-   where there is one;
+   where there is one; the LRN kernels' designs, the vector LRN forward
+   against its staged design bit for bit, and copies or adds of the
+   same bytes as the memory rate reachable;
 3. the full-width flagship serving forward (227x227, fpc 16, 2x256 LSTM,
    101 classes, bf16, random weights from a fixed seed): with the plain
    versions locked out, the first forward (eager, then the capture of
-   its graph) launches exactly 2 LRN and 32 lstm_step kernels and one
-   replay runs exactly as many, the logits must be finite
+   its graph) launches exactly 2 LRN (both the vector design) and 32
+   lstm_step kernels and one replay runs exactly as many, the logits must
+   be finite
    and of shape (clips, 101), one clip in float32 must agree with the same
    forward on the CPU, and forwards at 32 clips are timed;
 4. the HTTP server over a saved and reloaded serving module: single and
@@ -26,8 +29,8 @@ Phases (each raises on failure; nothing is caught and passed over):
    global-norm clip of 10, as the JAX bench.py trains): with the plain
    versions locked out each of the first three steps (eager; eager, then
    the capture; a replay) launches exactly 2 LRN, 2 LRN backward, 32
-   lstm_step and 1 conv1_dw_shifted kernels (both LRN backward launches
-   in its vector design), and a step with
+   lstm_step and 1 conv1_dw_shifted kernels (every LRN forward and
+   backward launch in its vector design), and a step with
    ``conv1_dw="blocked"`` launches 1 conv1_dw and moves conv1 as the
    shifted one does; one float32 step at 1 clip agrees between the card
    and the CPU; training steps are timed and one is profiled, which also
@@ -452,7 +455,10 @@ def errors(out, ref):
 def lrn_case(n, h, w, c, dtype, gen, radius=2):
     x = F.relu(torch.randn((n, h, w, c), generator=gen, device="cuda")
                * 40.0).to(dtype)
+    before = dict(lrn_mod.lrn.variant_launches)
     out = lrn_mod.lrn(x, radius)
+    variant, = [k for k, v in lrn_mod.lrn.variant_launches.items()
+                if v != before[k]]
     ref = lrn_mod.lrn_reference(x, radius)
     torch.cuda.synchronize()
     rtol, atol = (1e-2, 1e-6) if dtype == torch.bfloat16 else (1e-5, 1e-6)
@@ -469,22 +475,45 @@ def lrn_case(n, h, w, c, dtype, gen, radius=2):
         return F.local_response_norm(xt, size, alpha=size * 2e-5,
                                      beta=0.75, k=1.0)
 
-    lib = library()
-    lib_err = errors(lib.permute(0, 2, 3, 1), ref)[0]
+    lib_err = errors(library().permute(0, 2, 3, 1), ref)[0]
+    del ref
     numel = x.numel()
     bnd, by = bound_ms(2 * numel * x.element_size(), 12 * numel)
+    # the rate this card's memory reaches for the same traffic: a copy
+    # reads x and writes a tensor of its size
+    same_bytes = torch.empty_like(x)
     case = {
         "shape": list(x.shape), "dtype": str(dtype).replace("torch.", ""),
         "radius": radius, "max_abs_err": abs_err, "max_rel_err": rel_err,
-        "rtol": rtol,
+        "rtol": rtol, "variant": variant,
         "ms": cuda_ms(lambda: lrn_mod.lrn(x, radius)),
         "plain_ms": cuda_ms(lambda: lrn_mod.lrn_reference(x, radius)),
         "library_ms": cuda_ms(library),
-        "library_max_abs_err": lib_err, "bound_ms": bnd, "bound_by": by}
-    log("  lrn %-18s %-8s r=%d max_abs %.3g max_rel %.3g | kernel %.4f ms "
-        "plain %.4f ms library %.4f ms bound %.1f us (%s)"
-        % (tuple(x.shape), case["dtype"], radius, abs_err, rel_err,
-           case["ms"], case["plain_ms"], case["library_ms"], bnd * 1e3, by))
+        "library_max_abs_err": lib_err, "bound_ms": bnd, "bound_by": by,
+        "same_bytes_copy_ms": cuda_ms(lambda: same_bytes.copy_(x))}
+    case["share_of_bound"] = bnd / case["ms"]
+    staged = ""
+    if variant == "vector":
+        # the staged design on a copy that starts 2 bytes into its storage
+        # (no 16-byte chunks): the same arithmetic, so the same bits
+        buf = torch.empty(numel + 1, dtype=dtype, device="cuda")
+        xu = buf[1:].view(x.shape)
+        xu.copy_(x)
+        if not torch.equal(lrn_mod.lrn(xu, radius), out):
+            raise AssertionError("lrn %s %s: the vector and staged designs "
+                                 "differ" % (tuple(x.shape), dtype))
+        case["staged_ms"] = cuda_ms(lambda: lrn_mod.lrn(xu, radius))
+        staged = "; staged design %.4f ms, bit for bit equal" % \
+            case["staged_ms"]
+        del buf, xu
+    log("  lrn %-18s %-8s r=%d max_abs %.3g max_rel %.3g | %s kernel %.4f "
+        "ms (%.0f%% of bound) plain %.4f ms library %.4f ms bound %.1f us "
+        "(%s); a copy of the same bytes %.4f ms%s"
+        % (tuple(x.shape), case["dtype"], radius, abs_err, rel_err, variant,
+           case["ms"], 100 * case["share_of_bound"], case["plain_ms"],
+           case["library_ms"], bnd * 1e3, by, case["same_bytes_copy_ms"],
+           staged))
+    del same_bytes
     return case
 
 
@@ -635,15 +664,13 @@ def conv1_dw_case(fn, n, dtype, gen, graph_plain=True):
                        if dtype == torch.bfloat16 else PEAK_F32_OPS_PER_S)
     case.update(ms=cuda_ms(lambda: fn(x, g), iters=3, reps=3),
                 library_ms=cuda_ms(library, iters=3, reps=3),
-                bound_ms=bnd, bound_by=by,
-                helpers_ms=cuda_ms(
-                    lambda: conv1_mod.conv1_s2d_geometry(x, oh, oh)
-                    .contiguous(), iters=3, reps=3))
-    log("  %-16s %-18s %-8s max_abs %.3g | kernel %.3f ms (torch s2d "
-        "rearrangement alone %.3f ms) plain %.3f ms library %.3f ms bound "
-        "%.3f ms (%s)"
+                bound_ms=bnd, bound_by=by)
+    case["share_of_bound"] = bnd / case["ms"]
+    log("  %-16s %-18s %-8s max_abs %.3g | kernel on the raw frames %.3f "
+        "ms (%.0f%% of bound) plain %.3f ms library %.3f ms bound %.3f ms "
+        "(%s)"
         % (fn.__name__, tuple(case["shape"]), case["dtype"], abs_err,
-           case["ms"], case["helpers_ms"], case["plain_ms"],
+           case["ms"], 100 * case["share_of_bound"], case["plain_ms"],
            case["library_ms"], bnd, by))
     return case
 
@@ -717,13 +744,15 @@ _WRAPPERS = {"lrn": lrn_mod.lrn, "lrn_bwd": lrn_mod.lrn_backward,
 
 # each kernel by the symbol the profiler records for it (conv1_dw's
 # template argument is by_rows: true for the shifted entry point;
-# int8_mm's GEMM is cuBLAS's s8 kernel), and the LRN backward's designs
-KERNEL_SYMBOLS = {"lrn": r"lrn_fwd_kernel<",
+# int8_mm's GEMM is cuBLAS's s8 kernel), and the LRN forward's and
+# backward's designs
+KERNEL_SYMBOLS = {"lrn": r"lrn_fwd_(vec_)?kernel<",
                   "lrn_bwd": r"lrn_bwd_(vec_)?kernel<",
                   "lstm_step": r"lstm_step_kernel\(",
-                  "conv1_dw": r"conv1_dw_(bf16|f32)<false>",
-                  "conv1_dw_shifted": r"conv1_dw_(bf16|f32)<true>",
+                  "conv1_dw": r"conv1_dw_(wgmma|f32)<false>",
+                  "conv1_dw_shifted": r"conv1_dw_(wgmma|f32)<true>",
                   "int8_mm": r"gemm_s8|_s8s8|i8i8|imma"}
+FWD_SYMBOLS = {"staged": r"lrn_fwd_kernel<", "vector": r"lrn_fwd_vec_kernel<"}
 BWD_SYMBOLS = {"staged": r"lrn_bwd_kernel<", "vector": r"lrn_bwd_vec_kernel<"}
 # a wrapper's name, as a program's capture records it, by its count's name
 _COUNT_NAMES = {"lrn_backward": "lrn_bwd"}
@@ -758,6 +787,7 @@ class _Meter:
         self.replays = 0
         self.kernels = dict.fromkeys(KERNEL_SYMBOLS, 0)
         self.variants = dict.fromkeys(BWD_SYMBOLS, 0)
+        self.fwd_variants = dict.fromkeys(FWD_SYMBOLS, 0)
 
 
 _METER = _Meter()
@@ -782,6 +812,7 @@ def _metered_replay(program):
         prof.stop()
     ran, names = kernel_counts(prof)
     designs, _ = kernel_counts(prof, BWD_SYMBOLS)
+    fwd_designs, _ = kernel_counts(prof, FWD_SYMBOLS)
     _METER.overhead_s += (t1 - t0) + (time.monotonic() - t2)
     recorded = dict.fromkeys(KERNEL_SYMBOLS, 0)
     for name, n in program.launch_counts().items():
@@ -797,6 +828,8 @@ def _metered_replay(program):
         _METER.kernels[k] += n
     for k, n in designs.items():
         _METER.variants[k] += n
+    for k, n in fwd_designs.items():
+        _METER.fwd_variants[k] += n
     return out
 
 
@@ -841,6 +874,7 @@ def reset_counts():
         fn.launches = 0
     lrn_mod.lrn_backward.variant_launches = dict.fromkeys(lrn_mod.VARIANTS,
                                                           0)
+    lrn_mod.lrn.variant_launches = dict.fromkeys(lrn_mod.VARIANTS, 0)
     _METER.reset()
 
 
@@ -856,6 +890,13 @@ def variants():
     """The LRN backward's launches by design, counted as ``counts``
     counts them."""
     return {k: lrn_mod.lrn_backward.variant_launches[k] + _METER.variants[k]
+            for k in lrn_mod.VARIANTS}
+
+
+def fwd_variants():
+    """The LRN forward's launches by design, counted as ``counts``
+    counts them."""
+    return {k: lrn_mod.lrn.variant_launches[k] + _METER.fwd_variants[k]
             for k in lrn_mod.VARIANTS}
 
 
@@ -902,6 +943,12 @@ def phase_forward(results):
         raise AssertionError("expected %s in the first forward and in one "
                              "replay, got %s and %s (%d replays)"
                              % (want, eager, replayed, _METER.replays))
+    designs = fwd_variants()
+    log("  LRN forward launches by design: %s" % designs)
+    if designs != {"staged": 0, "vector": 4}:
+        raise AssertionError("the forwards' LRN launches were not all the "
+                             "vector design: %s" % designs)
+    results["serve_lrn_fwd_variants"] = designs
     if logits.shape != (SERVE_CLIPS, CLASSES) or \
             not np.all(np.isfinite(logits)):
         raise AssertionError("logits %s finite=%s"
@@ -1154,10 +1201,14 @@ def phase_train(results):
         raise AssertionError("one training step launched %s, expected %s"
                              % (launched, want))
     bwd_variants = variants()
-    log("  LRN backward launches by design: %s" % bwd_variants)
-    if bwd_variants != {"staged": 0, "vector": 2}:
-        raise AssertionError("the step's LRN backward launches were not "
-                             "both the vector design: %s" % bwd_variants)
+    lrn_designs = fwd_variants()
+    log("  LRN forward / backward launches by design: %s / %s"
+        % (lrn_designs, bwd_variants))
+    if bwd_variants != {"staged": 0, "vector": 2} or \
+            lrn_designs != {"staged": 0, "vector": 2}:
+        raise AssertionError("the step's LRN launches were not all the "
+                             "vector design: forward %s, backward %s"
+                             % (lrn_designs, bwd_variants))
     if not all(math.isfinite(v) for v in m_shift.values()):
         raise AssertionError("non-finite metrics %s" % m_shift)
     m_block, launched_b = locked_step(blocked, feed)
@@ -1182,6 +1233,7 @@ def phase_train(results):
     log("  conv1 step, blocked vs shifted: max abs %.3g of max %.3g"
         % (step_err, float(d_s.abs().max())))
     results["train_lrn_bwd_variants"] = bwd_variants
+    results["train_lrn_fwd_variants"] = lrn_designs
     results["train_launches_blocked"] = launched_b
     results["train_conv1_step_blocked_vs_shifted_max_abs"] = step_err
     del blocked
@@ -1194,14 +1246,16 @@ def phase_train(results):
     for i, f in enumerate(feeds):
         metrics, launched = locked_step(shifted, f)
         designs = variants()
+        lrn_designs = fwd_variants()
         log("  step %d (%s): %s; launched %s"
             % (i + 2, ("eager, then the capture", "a replay")[i], metrics,
                launched))
         if launched != want or designs != {"staged": 0, "vector": 2} or \
-                _METER.replays != i:
-            raise AssertionError("step %d launched %s (%s) in %d replays, "
-                                 "expected %s" % (i + 2, launched, designs,
-                                                  _METER.replays, want))
+                lrn_designs != designs or _METER.replays != i:
+            raise AssertionError("step %d launched %s (%s, %s) in %d "
+                                 "replays, expected %s"
+                                 % (i + 2, launched, designs, lrn_designs,
+                                    _METER.replays, want))
         total = {k: total[k] + launched[k] for k in total}
     results["train_launches"] = total
 

@@ -42,6 +42,41 @@ def test_lrn_kernel_matches_plain(gen, channels, radius):
     assert lrn_mod.lrn.launches == before + 2
 
 
+# the AlexNet training sites' channel counts, rows of 12 bf16 chunks that
+# cross warps (96) and of whole warps (256)
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("channels", [96, 256])
+def test_lrn_vector_kernel_equals_the_staged_one(gen, channels, dtype):
+    """The forward's vector design on aligned tensors and its staged
+    design on a view that starts 2 bytes into its storage (which the
+    vector design cannot read in 16-byte chunks): the same arithmetic in
+    the same order, so the same bits."""
+    shape = (3, 7, 5, channels)
+    x = torch.relu(torch.randn(shape, generator=gen, device="cuda") * 40) \
+        .to(dtype)
+    buf = torch.empty(x.numel() + 1, dtype=dtype, device="cuda")
+    xu = buf[1:].view(shape)
+    xu.copy_(x)
+    assert xu.is_contiguous() and xu.data_ptr() % 16 != 0
+    by_variant = dict(lrn_mod.lrn.variant_launches)
+    vector = lrn_mod.lrn(x)
+    staged = lrn_mod.lrn(xu)
+    by_variant["vector"] += 1
+    by_variant["staged"] += 1
+    assert lrn_mod.lrn.variant_launches == by_variant
+    assert torch.equal(vector, staged)
+    if dtype == torch.float32:
+        torch.testing.assert_close(vector, lrn_mod.lrn_reference(x),
+                                   rtol=1e-5, atol=1e-6)
+    # the moderate-denominator fast path and the IEEE calls (a huge x, a
+    # beta other than 0.75) give the staged design's bits too
+    x[0, 0] = 1e9
+    xu.copy_(x)
+    for kw in (dict(), dict(beta=0.6)):
+        assert torch.equal(lrn_mod.lrn(x, **kw), lrn_mod.lrn(xu, **kw))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("batch", [1, 5, 128])
 def test_lstm_step_kernel_matches_plain(gen, batch):
@@ -163,11 +198,13 @@ def test_lrn_backward_unaligned_tensors_take_the_staged_kernel(gen):
 
 
 # (39, 43) and (45, 37) as in the CPU tests; (40, 42) pads asymmetrically;
-# (20, 21) has fewer positions per image than a staged tile holds
+# (20, 21) has fewer gradient rows per image (5) than a bf16 tile holds;
+# (227, 227) is the training geometry
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(3, 39, 43, 3), (2, 45, 37, 3),
-                                   (5, 40, 42, 3), (6, 20, 21, 3)])
+                                   (5, 40, 42, 3), (6, 20, 21, 3),
+                                   (2, 227, 227, 3)])
 def test_conv1_dw_kernels_match_plain(gen, shape, dtype):
     from video_learning_tpu_torch.ops import conv1_dw as c1
     prev = torch.backends.cuda.matmul.allow_tf32
@@ -180,13 +217,13 @@ def test_conv1_dw_kernels_match_plain(gen, shape, dtype):
         before = (c1.conv1_dw.launches, c1.conv1_dw_shifted.launches)
         # float32 sums in another order; bf16 products are exact in f32
         tol = dict(rtol=1e-5, atol=1e-5 * float(ref.abs().max()))
-        # row ranges that cross images, and ones that start mid-row and
-        # hold less than a tile
+        # row ranges that cross images, and ones that start inside an
+        # image and hold less than a tile
         for out in (c1.conv1_dw(x, gout), c1.conv1_dw(x, gout,
                                                        block_images=1),
                     c1.conv1_dw_shifted(x, gout),
-                    c1.conv1_dw_shifted(x, gout, block_rows=200),
-                    c1.conv1_dw_shifted(x, gout, block_rows=97)):
+                    c1.conv1_dw_shifted(x, gout, block_rows=7),
+                    c1.conv1_dw_shifted(x, gout, block_rows=3)):
             assert out.dtype == torch.float32 and out.shape == ref.shape
             torch.testing.assert_close(out, ref, **tol)
         assert (c1.conv1_dw.launches, c1.conv1_dw_shifted.launches) == \
@@ -478,3 +515,22 @@ def test_fed_feeds_from_the_pinned_ring_equal_the_records(gen, tmp_path):
             assert torch.equal(feed[k].cpu(), torch.from_numpy(v)), k
     metrics = engine.run_step(prepared[-1])
     assert all(np.isfinite(v) for v in metrics.values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv1_dw_shifted_takes_frames_at_a_2_byte_offset(gen, dtype):
+    """The kernel copies the 16-byte aligned range that covers its frame
+    rows, so frames whose storage starts at any element offset give the
+    same bits as an aligned copy."""
+    from video_learning_tpu_torch.ops import conv1_dw as c1
+    shape = (3, 39, 43, 3)
+    x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    gout = torch.randn((3, 10, 11, 96), generator=gen,
+                       device="cuda").to(dtype)
+    buf = torch.empty(x.numel() + 1, dtype=dtype, device="cuda")
+    xu = buf[1:].view(shape)
+    xu.copy_(x)
+    assert xu.is_contiguous() and xu.data_ptr() % 16 != 0
+    assert torch.equal(c1.conv1_dw_shifted(xu, gout),
+                       c1.conv1_dw_shifted(x, gout))

@@ -182,6 +182,52 @@ def test_conv1_s2d_helpers_match_jax():
         np.asarray(pk._conv1_dw_s2d_to_hwio(jnp.asarray(dw), 3, 96)))
 
 
+# (39, 43), (45, 37) and (40, 42) as above; (20, 21) has 5 gradient rows
+# an image; (227, 227) is the training geometry (4 pixels of padding above
+# and left, 5 below and right)
+@pytest.mark.parametrize("shape", [(3, 39, 43, 3), (2, 45, 37, 3),
+                                   (5, 40, 42, 3), (6, 20, 21, 3),
+                                   (1, 227, 227, 3)])
+def test_conv1_raw_geometry_gathers_the_jax_s2d_frames(shape):
+    """The kernels read raw frames at the SAME geometry
+    ``conv1_raw_geometry`` computes (pixel (4P + di - top, 4Q + dj - left)
+    of position (P, Q)); the tensor gathered from it is exactly JAX's
+    padded and rearranged one."""
+    x = np.random.RandomState(8).randn(*shape).astype(np.float32)
+    oh, ow = -(-shape[1] // 4), -(-shape[2] // 4)
+    np.testing.assert_array_equal(
+        c1.conv1_s2d_geometry(torch.from_numpy(x), oh, ow).numpy(),
+        np.asarray(pk._conv1_s2d_geometry(jnp.asarray(x), oh, ow)))
+    top, left = c1.conv1_raw_geometry(shape[1], shape[2], oh, ow)
+    pad_h = (oh - 1) * 4 + 11 - shape[1]
+    pad_w = (ow - 1) * 4 + 11 - shape[2]
+    assert (top, left) == (pad_h // 2, pad_w // 2)
+
+
+def test_conv1_dw_bf16_kernel_rows_map_to_the_kernel():
+    """The bf16 kernel's 384 rows are 48 (tap, 8-channel chunk) pairs of
+    its channel layout: laid out from a 432-row s2d gradient by that
+    layout, the wrapper's index gives conv1_dw_s2d_to_hwio's (11, 11, 3,
+    96), each kernel entry once."""
+    dw = torch.from_numpy(np.random.RandomState(9).randn(432, 96)
+                          .astype(np.float32))
+    slots = {c1._bf16_slot(di, dj, c): (di * 4 + dj) * 3 + c
+             for di in range(4) for dj in range(4) for c in range(3)}
+    assert sorted(slots) == list(range(48))
+    # the pairs the kernel computes: every chunk a tap needs, in order
+    pairs = [(tap, chunk) for tap in range(9) for chunk in range(6)
+             if not (tap // 3 == 2 and chunk == 0) and
+             not (tap % 3 == 2 and chunk == 2)]
+    assert c1._BF16_ROWS == 8 * len(pairs) == 384
+    rows = torch.stack([dw[tap * 48 + slots[8 * chunk + e]]
+                        for tap, chunk in pairs for e in range(8)])
+    index = torch.tensor(c1._BF16_INDEX)
+    assert len(set(c1._BF16_INDEX)) == 363
+    np.testing.assert_array_equal(
+        rows[index].reshape(11, 11, 3, 96).numpy(),
+        c1.conv1_dw_s2d_to_hwio(dw, 3, 96).numpy())
+
+
 # ------------------------------------------------------ (c) Conv1Function
 @pytest.mark.parametrize("impl", ["shifted", "blocked"])
 @pytest.mark.parametrize("shape", [(2, 39, 43, 3), (2, 40, 42, 3)])

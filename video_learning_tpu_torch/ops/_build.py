@@ -111,7 +111,7 @@ def library():
             ptr, i32, i64, f32 = (ctypes.c_void_p, ctypes.c_int,
                                   ctypes.c_longlong, ctypes.c_float)
             lib.vlt_lrn_fwd.argtypes = [ptr, ptr, i64, i32, i32, i32, f32,
-                                        f32, f32, ptr]
+                                        f32, f32, ctypes.POINTER(i32), ptr]
             lib.vlt_lrn_fwd.restype = i32
             lib.vlt_lstm_step.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptr,
                                           i32, i32, ptr]
@@ -121,8 +121,8 @@ def library():
                                         ctypes.POINTER(i32), ptr]
             lib.vlt_lrn_bwd.restype = i32
             for fn in (lib.vlt_conv1_dw, lib.vlt_conv1_dw_shifted):
-                fn.argtypes = [ptr, ptr, ptr, ptr, i64, i32, i32, i32, i64,
-                               i32, ptr]
+                fn.argtypes = [ptr, ptr, ptr, ptr, i64, i32, i32, i32, i32,
+                               i32, i32, i32, i64, i32, ptr]
                 fn.restype = i32
             lib.vlt_error_string.argtypes = [i32]
             lib.vlt_error_string.restype = ctypes.c_char_p

@@ -7,8 +7,8 @@ versions and the autograd Function that joins them.
 tensors, and the plain ``lrn_reference`` / ``lrn_backward_reference`` on
 CPU tensors; on any other device, or a tensor a kernel does not take,
 they raise.  ``lrn.launches`` and ``lrn_backward.launches`` count kernel
-launches; ``lrn_backward.variant_launches`` counts them by the design
-``csrc/lrn_bwd.cu`` chose for the shape (``VARIANTS``).  A launch that
+launches; ``lrn.variant_launches`` and ``lrn_backward.variant_launches``
+count them by the design the kernel chose for the shape (``VARIANTS``).  A launch that
 a CUDA graph capture records counts in ``.captured`` instead
 (``graphs.py``).
 
@@ -28,10 +28,11 @@ from video_learning_tpu_torch.ops import _build
 from video_learning_tpu_torch.utils import error
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# lrn_backward's kernel designs, by the index vlt_lrn_bwd reports: "vector"
-# (16-byte chunks per lane, windows in registers) where C is a multiple of
-# 16 bytes, the radius at most half of that and the pointers 16-byte
-# aligned; "staged" (a warp per row, staged in shared memory) otherwise
+# the LRN kernels' designs, by the index vlt_lrn_fwd and vlt_lrn_bwd
+# report: "vector" (16-byte chunks per lane, windows in registers,
+# csrc/lrn_vec.cuh) where C is a multiple of 16 bytes, the radius at most
+# half of that and the pointers 16-byte aligned; "staged" (a warp per row,
+# staged in shared memory) otherwise
 VARIANTS = ("staged", "vector")
 
 
@@ -94,8 +95,10 @@ def _check(name, x):
 
 def lrn(x, depth_radius=2, bias=1.0, alpha=2e-5, beta=0.75):
     """LRN over the trailing channel axis of a contiguous channels-last
-    (N, H, W, C) tensor in float32 or bfloat16.  No gradient: see
-    ``LRNFunction``."""
+    (N, H, W, C) tensor in float32 or bfloat16.  On the card takes any C
+    that is a multiple of 16 bytes at a radius up to half of that (the
+    vector design), and other C up to 766 at radius 2 (the staged
+    design).  No gradient: see ``LRNFunction``."""
     if x.device.type == "cpu":
         return lrn_reference(x, depth_radius, bias, alpha, beta)
     _check("lrn", x)
@@ -104,19 +107,24 @@ def lrn(x, depth_radius=2, bias=1.0, alpha=2e-5, beta=0.75):
               "LRNFunction.apply for a tensor that requires one")
     channels = x.shape[-1]
     y = torch.empty_like(x)
+    variant = ctypes.c_int(-1)
     rc = _build.library().vlt_lrn_fwd(
         x.data_ptr(), y.data_ptr(), x.numel() // max(channels, 1), channels,
         _DTYPES[x.dtype], int(depth_radius), float(bias), float(alpha),
-        float(beta), torch.cuda.current_stream(x.device).cuda_stream)
+        float(beta), ctypes.byref(variant),
+        torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(rc, "lrn")
-    if torch.cuda.is_current_stream_capturing():
-        lrn.captured += 1         # runs at the graph's replays
-    else:
-        lrn.launches += 1
+    if variant.value >= 0:          # -1: nothing to compute, no launch
+        if torch.cuda.is_current_stream_capturing():
+            lrn.captured += 1         # runs at the graph's replays
+        else:
+            lrn.launches += 1
+            lrn.variant_launches[VARIANTS[variant.value]] += 1
     return y
 
 
 graphs.register_wrapper(lrn)
+lrn.variant_launches = dict.fromkeys(VARIANTS, 0)
 
 
 def lrn_backward(x, g, depth_radius=2, bias=1.0, alpha=2e-5, beta=0.75):
