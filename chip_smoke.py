@@ -12,7 +12,11 @@ Phases (each raises on failure; nothing is caught and passed over):
    with times beside the bound and the one-call library equivalent
    where there is one; the LRN kernels' designs, the vector LRN forward
    against its staged design bit for bit, and copies or adds of the
-   same bytes as the memory rate reachable;
+   same bytes as the memory rate reachable; lstm_step at B = 1, 8, 128
+   and 32 (H = 256), 64 and 256 (H = 512) and ragged shapes (3 x 40,
+   2 x 37, 257 x 512), each launched twice for the same bits, with its
+   plan and how many of its clusters the card holds at once, its bound
+   at the 3xTF32 rate beside the old float32-core one;
 3. the full-width flagship serving forward (227x227, fpc 16, 2x256 LSTM,
    101 classes, bf16, random weights from a fixed seed): with the plain
    versions locked out, the first forward (eager, then the capture of
@@ -367,6 +371,9 @@ from video_learning_tpu_torch.train import WARMUP_STEPS, Train
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
 PEAK_BF16_OPS_PER_S = 989e12
+# the fastest float32-accurate route for a product: 3xTF32 on the tensor
+# cores, three TF32 products (495 TFLOP/s dense) for each float32 one
+PEAK_3XTF32_OPS_PER_S = 495e12 / 3
 PEAK_INT8_OPS_PER_S = 1979e12
 
 SERVE_CLIPS = 32        # clips per timed serving forward
@@ -532,11 +539,19 @@ def lstm_case(batch, gen, H=HIDDEN):
     rel_err = max(errors(out_h, ref_h)[1], errors(out_c, ref_c)[1])
     if not (torch.allclose(out_h, ref_h, rtol=rtol, atol=atol) and
             torch.allclose(out_c, ref_c, rtol=rtol, atol=atol)):
-        raise AssertionError("lstm_step B=%d: kernel disagrees with plain "
-                             "(max abs %.3g)" % (batch, abs_err))
+        raise AssertionError("lstm_step B=%d H=%d: kernel disagrees with "
+                             "plain (max abs %.3g)" % (batch, H, abs_err))
+    again_h, again_c = lstm_mod.lstm_step(xproj, h, c, wh, b)
+    if not (torch.equal(again_h, out_h) and torch.equal(again_c, out_c)):
+        raise AssertionError("lstm_step B=%d H=%d: two launches differ"
+                             % (batch, H))
     nbytes = 4 * (batch * 4 * H + 2 * batch * H + 4 * H * H + 4 * H
                   + 2 * batch * H)
-    bnd, by = bound_ms(nbytes, 2 * batch * H * 4 * H + 20 * batch * H)
+    ops = 2 * batch * H * 4 * H + 20 * batch * H
+    bnd, by = bound_ms(nbytes, ops, PEAK_3XTF32_OPS_PER_S)
+    p = lstm_mod.card_plan(batch, H, xproj.device)
+    resident = _build.library().vlt_lstm_step_max_clusters(
+        H, p.rows, p.wj, p.k_cta, p.split)
     case = {
         "batch": batch, "hidden": H, "max_abs_err": abs_err,
         "max_rel_err": rel_err, "rtol": rtol, "atol": atol,
@@ -546,13 +561,18 @@ def lstm_case(batch, gen, H=HIDDEN):
             lambda: lstm_mod.lstm_step_reference(xproj, h, c, wh, b),
             iters=50),
         "eager_ms": eager_ms(lambda: lstm_mod.lstm_step(xproj, h, c, wh, b)),
-        "library_ms": None, "bound_ms": bnd, "bound_by": by}
+        "library_ms": None, "bound_ms": bnd, "bound_by": by,
+        "bound_f32_cores_ms": bound_ms(nbytes, ops)[0],
+        "plan": p._asdict(), "clusters": p.tiles * p.groups,
+        "resident_clusters": resident}
     case["share_of_bound"] = bnd / case["ms"]
-    log("  lstm_step B=%-4d H=%d max_abs %.3g | kernel %.4f ms (%.0f%% of "
-        "bound) plain %.4f ms bound %.2f us (%s); eager launch-to-launch "
-        "%.4f ms; no single library call computes it"
+    log("  lstm_step B=%-4d H=%d max_abs %.3g, two launches equal | kernel "
+        "%.4f ms (%.0f%% of bound) plain %.4f ms bound %.2f us (%s); eager "
+        "launch-to-launch %.4f ms; %d clusters of %d CTAs x %d threads "
+        "(%d resident at once); no single library call computes it"
         % (batch, H, abs_err, case["ms"], 100 * case["share_of_bound"],
-           case["plain_ms"], bnd * 1e3, by, case["eager_ms"]))
+           case["plain_ms"], bnd * 1e3, by, case["eager_ms"],
+           case["clusters"], p.split, p.threads, resident))
     return case
 
 
@@ -701,7 +721,16 @@ def phase_kernels(clips):
     _, hidden = caption_sizes(caption_flagship()[1])
     lstm_cases += [lstm_case(b, gen, hidden)
                    for b in (CAPTION_ITEMS, BEAM * CAPTION_ITEMS)]
+    # ragged: H not a multiple of the j tile, H not a multiple of 4 (the
+    # kernel's 4-byte copies), one row past the plan's 128-row groups
+    lstm_cases += [lstm_case(3, gen, 40), lstm_case(2, gen, 37),
+                   lstm_case(BEAM * CAPTION_ITEMS + 1, gen, hidden)]
     lstm_main = lstm_case(clips, gen)
+    log("  lstm_step bound at the 3xTF32 rate (495 / 3 TFLOP/s) beside the "
+        "one at the float32 CUDA-core rate (67 TFLOP/s) used before: %s"
+        % ", ".join("(%d, %d) %.2f / %.2f us" % (
+            k["batch"], k["hidden"], k["bound_ms"] * 1e3,
+            k["bound_f32_cores_ms"] * 1e3) for k in lstm_cases + [lstm_main]))
     bwd_cases = [lrn_bwd_case(8 * FPC, *site, dtype, gen)
                  for site in LRN_SITES
                  for dtype in (torch.bfloat16, torch.float32)]
@@ -748,7 +777,7 @@ _WRAPPERS = {"lrn": lrn_mod.lrn, "lrn_bwd": lrn_mod.lrn_backward,
 # backward's designs
 KERNEL_SYMBOLS = {"lrn": r"lrn_fwd_(vec_)?kernel<",
                   "lrn_bwd": r"lrn_bwd_(vec_)?kernel<",
-                  "lstm_step": r"lstm_step_kernel\(",
+                  "lstm_step": r"lstm_step_wgmma\b",
                   "conv1_dw": r"conv1_dw_(wgmma|f32)<false>",
                   "conv1_dw_shifted": r"conv1_dw_(wgmma|f32)<true>",
                   "int8_mm": r"gemm_s8|_s8s8|i8i8|imma"}

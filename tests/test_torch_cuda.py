@@ -280,6 +280,51 @@ def test_lstm_step_kernel_matches_plain_at_decode_shapes(gen, batch):
     assert lstm_mod.lstm_step.launches == before + 1
 
 
+def _lstm_args(gen, batch, hidden, offset=0):
+    """Phase 2's inputs; ``offset`` floats into each buffer (a view that
+    is not 16-byte aligned: the kernel's cp.async copies, not TMA)."""
+    shapes = ((batch, 4 * hidden), (batch, hidden), (batch, hidden),
+              (hidden, 4 * hidden), (4 * hidden,))
+    scales = (1.0, 1.0, 1.0, 0.05, 0.1)
+    out = []
+    for shape, scale in zip(shapes, scales):
+        n = int(torch.tensor(shape).prod())
+        t = torch.empty(n + offset, device="cuda")[offset:].view(shape)
+        t.copy_(torch.randn(shape, generator=gen, device="cuda") * scale)
+        out.append(t)
+    out[1] = torch.tanh(out[1])
+    return out
+
+
+# H not a multiple of the j tile; H not a multiple of 4 (no TMA); one row
+# past two 128-row groups; pointers 4 bytes past 16-byte alignment
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,hidden,offset", [(3, 40, 0), (2, 37, 0),
+                                                 (257, 512, 0), (5, 256, 1)])
+def test_lstm_step_kernel_matches_plain_at_ragged_shapes(gen, batch, hidden,
+                                                         offset):
+    args = _lstm_args(gen, batch, hidden, offset)
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False    # a float32 reference
+    try:
+        want = lstm_mod.lstm_step_reference(*args)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    for got, ref in zip(lstm_mod.lstm_step(*args), want):
+        torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5)
+
+
+# the main path's shapes: the cluster's sums meet in a fixed order
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,hidden", [(32, 256), (128, 256), (64, 512),
+                                          (256, 512)])
+def test_lstm_step_kernel_gives_the_same_bits_twice(gen, batch, hidden):
+    args = _lstm_args(gen, batch, hidden)
+    first = lstm_mod.lstm_step(*args)
+    second = lstm_mod.lstm_step(*args)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
 def _decoder(seed=0, H=512, E=300, V=1000, items=2):
     """A 1x512 caption decoder (lstm params, output FC, embeddings,
     state-bias visual) on the CPU, drawn from a torch seed."""

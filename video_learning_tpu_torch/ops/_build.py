@@ -114,8 +114,10 @@ def library():
                                         f32, f32, ctypes.POINTER(i32), ptr]
             lib.vlt_lrn_fwd.restype = i32
             lib.vlt_lstm_step.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptr,
-                                          i32, i32, ptr]
+                                          i32, i32, i32, i32, i32, i32, ptr]
             lib.vlt_lstm_step.restype = i32
+            lib.vlt_lstm_step_max_clusters.argtypes = [i32] * 5
+            lib.vlt_lstm_step_max_clusters.restype = i32
             lib.vlt_lrn_bwd.argtypes = [ptr, ptr, ptr, i64, i32, i32, i32,
                                         f32, f32, f32, f32,
                                         ctypes.POINTER(i32), ptr]
