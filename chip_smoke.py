@@ -279,6 +279,28 @@ Phases (each raises on failure; nothing is caught and passed over):
    a size on the mesh and on the single process (recorded, not held:
    the ranks share one card), and every rank exits 0 after rank 0's
    stop.
+15. conv1's other lowerings, the frozen conv1 and remat, last, in a
+   process of its own (after phases 12 and 14 ran other processes on
+   the card, this process's profiler loses kernel records of replays).
+   At a training step's 2048 frames in bf16, as CUDA-graph replays in
+   turns: conv1's forward, direct and space-to-depth
+   (``alexnet.conv1_space_to_depth``), within a few bf16 steps of each
+   other, and its weight gradient, ``conv1_dw_shifted`` and im2col
+   (``conv1_dw_im2col``), within 1e-4 of the scale, each beside its
+   bound.  Phase 5's 128-clip bf16 step with ``conv1_fwd="s2d"``,
+   ``conv1_dw="im2col"``, ``freeze_conv1=True`` and ``settings.remat``:
+   with the plain versions locked out each of its first three steps
+   (eager; eager, then the capture; a replay, counted by the profiler)
+   launches lrn 2 (remat: 4, the recompute), lrn_bwd 2 (freeze: 1,
+   nothing below conv2 needs a gradient), lstm_step 32 and
+   conv1_dw_shifted 1 (im2col and freeze: 0), every LRN launch the
+   vector design; each graphed step timed beside the default one in
+   turns, the eager step's peak memory and the graph pool's bytes of
+   each.  In float32 (TF32 off, cuDNN deterministic, dropout 0.5) 3
+   steps of 8 clips with remat, eager and graphed, against the eager
+   steps without remat (phase 11's rule; bitwise equality printed), and
+   what one remat replay runs.  One s2d and one im2col float32 step at
+   1 clip, card against CPU (phase 5's rule).
 
 Phases 3-10 run the port's defaults, which on the card are graph
 replays: a program's first call at a shape runs eagerly and then
@@ -1316,10 +1338,10 @@ def phase_train(results):
         "profiled step: %s" % (copies or "none"))
 
 
-def step_card_vs_cpu(settings, model, start, feed, what):
+def step_card_vs_cpu(settings, model, start, feed, what, **train_kw):
     """One float32 training step on the card and on the CPU from the same
-    parameters and feed; returns (loss rel error, worst gradient tensor
-    rel norm).  ``settings`` trains by SGD at lr 1 without clipping, so
+    parameters and feed (``train_kw`` to both ``Train``s); returns (loss
+    rel error, worst gradient tensor rel norm).  ``settings`` trains by SGD at lr 1 without clipping, so
     each parameter moves by exactly minus its gradient.  Dropout is off:
     the card draws its masks from the CUDA generator and the CPU from
     its own, so the two devices' masks differ by design (phase 11 holds
@@ -1328,7 +1350,7 @@ def step_card_vs_cpu(settings, model, start, feed, what):
     steps = {}
     for device in ("cuda", "cpu"):
         eng = Train(settings, settings.feeder, model, params=start,
-                    device=device)
+                    device=device, **train_kw)
         before = {k: v.detach().cpu().clone() for k, v in
                   checkpoint.flatten_tree(eng.params).items()}
         metrics = eng.run_step(dict(feed))
@@ -1863,8 +1885,8 @@ def int8_layer_table(dcnn, x, results):
         return layers.fc_apply_int8(q[name], inp)
 
     with torch.inference_mode():
-        alexnet._forward(dcnn, x, "fc7", torch.bfloat16, "shifted", conv,
-                         fc)
+        alexnet._forward(dcnn, x, "fc7", torch.bfloat16,
+                         alexnet._SERVING_CONV1, conv, fc)
         rows = []
         for name, inp in inputs.items():
             rows.append(int8_layer_row(name, dcnn, q, inp))
@@ -3598,23 +3620,27 @@ def dropout_on_card(results):
     torch.cuda.empty_cache()
 
 
-def graph_engines(opts):
+def graph_engines(opts, with_graphed=True):
     """A float32 eager engine and a graphed one at GRAPH_CLIPS clips,
     dropout 0.5, from one seed; the graphed one has run its warmup steps
     and one replay and is then restored to the eager one's state (a
-    restore after the capture)."""
+    restore after the capture).  Without ``with_graphed``: (eager, None,
+    processor)."""
     engines = []
-    for graphs in (False, True):
+    for graphs in (False, True)[:1 + with_graphed]:
         settings, model = training_flagship(GRAPH_CLIPS, "float32",
                                             **opts.get("flagship", {}))
         settings.train.dropout_keep_prob = 0.5
         for k, v in opts.get("train", {}).items():
             setattr(settings.train, k, v)
+        settings.remat = opts.get("remat", False)
         settings.watch_tensors = opts.get("watch")
         engines.append(Train(settings, settings.feeder, model, seed=0,
                              device="cuda", graphs=graphs))
-    eager, graphed = engines
     processor = settings.feeder.datasets[0].processor
+    if not with_graphed:
+        return engines[0], None, processor
+    eager, graphed = engines
     for s in range(WARMUP_STEPS + 1):
         graphed.run_step(training_feed(processor, GRAPH_CLIPS, 40 + s,
                                        "cuda"))
@@ -5654,6 +5680,287 @@ def phase_resume_serve(results, folder):
         graphs_mod.Program.replay = _metered_replay
 
 
+# ------------------------------------------------------------- phase 15
+# conv1's lowerings, the frozen conv1 and remat, each a Train option of
+# the 128-clip bf16 step; the launches of a step of each (eager, and a
+# replay), with the plain versions locked out
+STEP_VARIANTS = {"default": {}, "s2d": {"conv1_fwd": "s2d"},
+                 "im2col": {"conv1_dw": "im2col"},
+                 "freeze": {"freeze_conv1": True}, "remat": {}}
+VARIANT_WANT = {
+    "default": {"lrn": 2, "lrn_bwd": 2, "lstm_step": FPC * LAYERS,
+                "conv1_dw": 0, "conv1_dw_shifted": 1},
+    # the recompute runs the encoder's forward again: 2 more LRNs
+    "remat": {"lrn": 4, "lrn_bwd": 2, "lstm_step": FPC * LAYERS,
+              "conv1_dw": 0, "conv1_dw_shifted": 1},
+    "s2d": {"lrn": 2, "lrn_bwd": 2, "lstm_step": FPC * LAYERS,
+            "conv1_dw": 0, "conv1_dw_shifted": 1},
+    # im2col's weight gradient is torch ops
+    "im2col": {"lrn": 2, "lrn_bwd": 2, "lstm_step": FPC * LAYERS,
+               "conv1_dw": 0, "conv1_dw_shifted": 0},
+    # with conv1 frozen nothing below conv2 needs a gradient: no weight
+    # gradient, and no backward of the first LRN (or of pool1)
+    "freeze": {"lrn": 2, "lrn_bwd": 1, "lstm_step": FPC * LAYERS,
+               "conv1_dw": 0, "conv1_dw_shifted": 0}}
+CONV1_FRAMES = TRAIN_CLIPS * FPC        # conv1's frames a training step
+
+
+def conv1_lowerings(results):
+    """conv1's forward, direct and s2d, and its weight gradient, the
+    shifted kernel and im2col, at a training step's 2048 frames in bf16:
+    CUDA-graph replays in turns, the largest difference of each pair,
+    and the bound of each (bytes: the frames and the output or the
+    gradient read or written once; operations: the direct conv's
+    products at the bf16 tensor-core rate)."""
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    n, oh = CONV1_FRAMES, -(-IMAGE // 4)
+    x = torch.randn((n, IMAGE, IMAGE, 3), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    w = layers.hwio_to_oihw(torch.randn(
+        (11, 11, 3, 96), generator=gen, device="cuda") * 0.05).to(
+        torch.bfloat16)
+    b = torch.full((96,), 0.1, device="cuda")
+    g = torch.randn((n, oh, oh, 96), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    fwd = {"direct": lambda: layers.conv_apply({"w": w, "b": b}, x, (4, 4),
+                                               "SAME"),
+           "s2d": lambda: alexnet.conv1_space_to_depth(x, w, b)}
+    dw = {"shifted": lambda: conv1_mod.conv1_dw_shifted(x, g),
+          "im2col": lambda: conv1_mod.conv1_dw_im2col(x, g)}
+    ops = 2.0 * n * oh * oh * 96 * 11 * 11 * 3
+    x_bytes = x.numel() * 2
+    out = {}
+    # the forward's outputs are bf16, each rounded twice (the conv, the
+    # bias): two orders of summation part by a few bf16 steps at most;
+    # the weight gradients are float32 sums of exact products (phase 2
+    # holds the shifted kernel to 1e-5 of the scale)
+    for what, fns, nbytes, tol in (
+            ("forward", fwd, x_bytes + n * oh * oh * 96 * 2 + w.numel() * 2,
+             2 ** -6),
+            ("weight_gradient", dw, x_bytes + g.numel() * 2 +
+             w.numel() * 4, 1e-4)):
+        a, c = list(fns)
+        times = {a: [], c: []}
+        for k in (a, c, c, a):
+            times[k].append(cuda_ms(fns[k]))
+        err, _ = errors(fns[c](), fns[a]())
+        scale = float(fns[a]().double().abs().max())
+        bound, by = bound_ms(nbytes, ops, PEAK_BF16_OPS_PER_S)
+        row = {k: v for k, v in times.items()}
+        row.update(max_abs_diff=err, scale=scale, tolerance=tol * scale,
+                   bound_ms=bound, bound_by=by)
+        log("  conv1 %s at %d frames, bf16 (graph replays, in turns): %s "
+            "%s ms, %s %s ms; max |%s - %s| %.3g of %.3g; bound %.3f ms "
+            "(%s)" % (what.replace("_", " "), n, a,
+                      " / ".join("%.3f" % t for t in times[a]), c,
+                      " / ".join("%.3f" % t for t in times[c]), c, a, err,
+                      scale, bound, by))
+        if not (math.isfinite(err) and err <= tol * scale):
+            raise AssertionError("conv1 %s: %s and %s differ by %.3g of %.3g"
+                                 % (what, c, a, err, scale))
+        out[what] = row
+    results["conv1_lowerings"] = out
+    del x, g, fwd, dw
+    torch.cuda.empty_cache()
+
+
+def variant_engine(name):
+    """The 128-clip bf16 training engine of phase 5 with ``name``'s
+    option (``STEP_VARIANTS``; remat: ``settings.remat``)."""
+    settings, model = training_flagship(TRAIN_CLIPS, "bfloat16")
+    settings.remat = name == "remat"
+    return Train(settings, settings.feeder, model, seed=0, device="cuda",
+                 **STEP_VARIANTS[name])
+
+
+def variant_steps(name, feeds):
+    """Phase 5's three steps (eager; eager, then the capture; a replay)
+    of ``name``'s engine with the plain versions locked out, each
+    launching ``VARIANT_WANT[name]`` (every LRN launch the vector design),
+    every metric finite; the eager step's peak memory above what was
+    allocated before the engine was built, and the graph pool's bytes.
+    Returns (engine, record)."""
+    want = VARIANT_WANT[name]
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    engine = variant_engine(name)
+    rec = {"launches": []}
+    for i, feed in enumerate((feeds[0], feeds[1], feeds[0])):
+        metrics, launched = locked_step(engine, feed)
+        if i == 0:
+            rec["eager_peak_gb"] = (torch.cuda.max_memory_allocated()
+                                    - before) / 1e9
+        lrn_want = {"staged": 0, "vector": want["lrn"]}
+        bwd_want = {"staged": 0, "vector": want["lrn_bwd"]}
+        if launched != want or fwd_variants() != lrn_want or \
+                variants() != bwd_want or \
+                _METER.replays != (1 if i == 2 else 0) or \
+                not all(math.isfinite(v) for v in metrics.values()):
+            raise AssertionError(
+                "%s step %d launched %s (LRN %s / %s) in %d replays with "
+                "metrics %s; expected %s" % (name, i + 1, launched,
+                                             fwd_variants(), variants(),
+                                             _METER.replays, metrics, want))
+        rec["launches"].append(launched)
+    program, _ = train_program(engine, ("step",))
+    rec["pool_gb"] = program.pool_bytes / 1e9
+    rec["capture_s"] = program.capture_s
+    log("  %s step: launched %s eager, eager then the capture, and in a "
+        "replay; eager step peak +%.2f GB, graph pool %.2f GB"
+        % (name, want, rec["eager_peak_gb"], rec["pool_gb"]))
+    return engine, rec
+
+
+def variant_steps_timed(results):
+    """The graphed 128-clip bf16 step of each option beside the default
+    step, in turns (default, option, option, default)."""
+    settings, _ = training_flagship(TRAIN_CLIPS, "bfloat16")
+    processor = settings.feeder.datasets[0].processor
+    feeds = [training_feed(processor, TRAIN_CLIPS, s, "cuda")
+             for s in (1, 2)]
+    default, out = None, {}
+    for name in STEP_VARIANTS:
+        engine, rec = variant_steps(name, feeds)
+        if default is None:
+            default, out[name] = engine, rec
+            continue
+        turn = [0]
+
+        def run(eng):
+            eng.run_step(dict(feeds[turn[0] % 2]))
+            turn[0] += 1
+
+        ms = {"default": [], name: []}
+        for k, eng in (("default", default), (name, engine),
+                       (name, engine), ("default", default)):
+            ms[k].append(timed_s(lambda: run(eng), 3) * 1e3)
+        rec["graphed_ms"] = ms[name]
+        rec["default_graphed_ms"] = ms["default"]
+        log("  graphed %d-clip bf16 step, %s: %s ms beside the default's "
+            "%s ms (%s)" % (TRAIN_CLIPS, name,
+                            " / ".join("%.2f" % t for t in ms[name]),
+                            " / ".join("%.2f" % t for t in ms["default"]),
+                            gpu_line()))
+        out[name] = rec
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+    del default
+    gc.collect()
+    torch.cuda.empty_cache()
+    results["conv1_remat_steps"] = out
+
+
+def remat_graphed_vs_eager(results):
+    """In float32 (TF32 off, cuDNN deterministic), GRAPH_CLIPS clips,
+    dropout 0.5: GRAPH_STEPS steps with remat, eager and graphed (after
+    a restore), against the eager steps without remat from the same
+    seed; the remat replay's kernels."""
+    _float32_exact()
+    try:
+        eager, graphed, processor = graph_engines({"remat": True})
+        plain, _, _ = graph_engines({}, with_graphed=False)
+        start = eager.state_dict()
+        feeds = [training_feed(processor, GRAPH_CLIPS, 50 + s, "cuda")
+                 for s in range(GRAPH_STEPS)]
+        equal = {"eager": True, "graphed": True}
+        for i, feed in enumerate(feeds):
+            mp = plain.run_step(dict(feed))
+            me = eager.run_step(dict(feed))
+            mg = graphed.run_step(dict(feed))
+            equal["eager"] &= metrics_agree("remat eager step %d" % i, mp,
+                                            me)
+            equal["graphed"] &= metrics_agree("remat graphed step %d" % i,
+                                              mp, mg)
+        out = {}
+        for what, eng in (("eager", eager), ("graphed", graphed)):
+            bitwise, worst = states_agree("remat %s" % what, plain, eng,
+                                          start)
+            diff = max(float((a - b).detach().abs().max()) for a, b in zip(
+                checkpoint.flatten_tree(eng.params).values(),
+                checkpoint.flatten_tree(plain.params).values()))
+            out[what] = {"metrics_bitwise": bool(equal[what]),
+                         "state_bitwise": bitwise,
+                         "worst_share_of_update": worst,
+                         "max_param_diff": diff}
+            log("  float32 %d-clip step with remat, %s, against the eager "
+                "step without: %d steps, metrics bitwise %s, state bitwise "
+                "%s (worst %.3g of an update; largest parameter difference "
+                "%.3g)" % (GRAPH_CLIPS, what, GRAPH_STEPS, equal[what],
+                           bitwise, worst, diff))
+        program, _ = train_program(graphed, ("step",))
+        out["launches"] = replay_counts(
+            "remat training step", lambda: eager.run_step(dict(feeds[0])),
+            lambda: graphed.run_step(dict(feeds[0])),
+            VARIANT_WANT["remat"], program)
+        results["remat_graphed_vs_eager"] = out
+        del eager, graphed, plain
+        torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = False
+
+
+def conv1_card_vs_cpu(results):
+    """One float32 step at 1 clip with the s2d forward and one with the
+    im2col weight gradient, on the card and on the CPU (phase 5's
+    rule)."""
+    out = {}
+    for name in ("s2d", "im2col"):
+        settings, model = training_flagship(1, "float32", base_lr=1.0,
+                                            clip_norm=None)
+        processor = settings.feeder.datasets[0].processor
+        loss_err, worst = step_card_vs_cpu(
+            settings, model, model.init_params(seed=3, device="cpu"),
+            training_feed(processor, 1, 5, "cpu"),
+            "%s step at 1 clip" % name, **STEP_VARIANTS[name])
+        out[name] = {"loss_rel": loss_err, "grad_rel_norm_max": worst}
+    results["conv1_card_vs_cpu"] = out
+
+
+def phase_conv1_remat(results):
+    """Phase 15: conv1's other lowerings, the frozen conv1 and remat."""
+    log("phase 15: conv1's s2d forward, im2col and frozen weight "
+        "gradients, remat (%s)" % gpu_line())
+    t0 = time.monotonic()
+    conv1_lowerings(results)
+    variant_steps_timed(results)
+    remat_graphed_vs_eager(results)
+    conv1_card_vs_cpu(results)
+    results["conv1_remat_phase_s"] = time.monotonic() - t0
+
+
+def phase15_child(out_path):
+    """Phase 15 in a process of its own (``run_phase15``): the kernels
+    loaded, TF32 off as phase 2 leaves it, replays metered; writes its
+    results to ``out_path`` as JSON."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _build.library()
+    install_meter()
+    results = {}
+    phase_conv1_remat(results)
+    with open(out_path, "w") as f:
+        json.dump(results, f)
+    return 0
+
+
+def run_phase15(results, folder):
+    """Phase 15 in a child process: phases 12 and 14 ran other processes
+    on the card, after which this process's profiler loses kernel
+    records of the replays that phase 15 counts."""
+    out_path = os.path.join(folder, "phase15.json")
+    here = os.path.dirname(os.path.abspath(__file__))
+    rc = subprocess.run(
+        [sys.executable, "-c", "import sys, chip_smoke as cs; "
+         "sys.exit(cs.phase15_child(sys.argv[1]))", out_path],
+        cwd=here, timeout=900).returncode
+    if rc != 0:
+        raise AssertionError("phase 15 exited with %d" % rc)
+    with open(out_path) as f:
+        results.update(json.load(f))
+
+
 def kernel_entry(name, source, replaces, launches, cases, main_cases):
     """One kernel's line entry.  Times and bounds are for the launches of
     the main path's run (the sum over its launch sites); errors are the
@@ -5756,6 +6063,12 @@ def main(argv=None):
         phase_resume_serve(results, folder)
         results["resume_serve_phase_s"] = time.monotonic() - t0
         log("  phase 14 took %.1f s" % results["resume_serve_phase_s"])
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.monotonic()
+        run_phase15(results, folder)
+        log("  phase 15 took %.1f s (%.1f s in its process's phase)"
+            % (time.monotonic() - t0, results["conv1_remat_phase_s"]))
     finally:
         shutil.rmtree(folder, ignore_errors=True)
 

@@ -3,8 +3,8 @@
 substitutions) and the same document written as JSON give equal
 ``Settings`` in both packages; the same malformed fields are refused by
 both; the fields the port does not carry out (a mesh of more than one
-device, the orbax checkpoint backend) are refused, and those it ignores
-are logged.  Values must be equal."""
+device, the orbax checkpoint backend) are refused, and the one it
+ignores (compile_cache) is logged.  Values must be equal."""
 
 import json
 import os
@@ -178,8 +178,8 @@ def test_both_refuse_the_same_bad_fields(name, tmp_path):
 def test_port_refuses_what_it_does_not_carry_out(tmp_path, caplog):
     """A mesh of more than one device raises with a pointer to the
     ROADMAP item, the orbax checkpoint backend (a JAX library's format)
-    raises and names npz; remat and compile_cache are logged as
-    ignored."""
+    raises and names npz; compile_cache is logged as ignored, and remat,
+    which the port carries out, is kept and not logged as ignored."""
     run = _example_run(tmp_path)
     run["mesh_shape"] = {"data": 2, "model": 1}
     with pytest.raises(FrameworkError, match="Queue 1, item 6"):
@@ -188,8 +188,9 @@ def test_port_refuses_what_it_does_not_carry_out(tmp_path, caplog):
     run["remat"], run["compile_cache"] = True, "/nowhere"
     caplog.set_level("INFO", logger="vlt")
     path = str(tmp_path / "cap.json")
-    _load(Settings, run, path)
-    assert "remat" in caplog.text and "compile_cache" in caplog.text
+    assert _load(Settings, run, path).remat is True
+    assert "compile_cache" in caplog.text
+    assert "remat" not in caplog.text and "ignored" not in caplog.text
     run["checkpoint_backend"] = "orbax"
     with pytest.raises(FrameworkError, match="npz"):
         _load(Settings, run, str(tmp_path / "orbax.json"))

@@ -21,6 +21,10 @@ convs (conv2, conv4, conv5) twice their weight gradient
 step on one device of the global batch, and, where JAX's mesh is right
 (``accum_steps`` 2), to JAX's mesh as well.
 
+The same start of the ranks also takes one step with remat and one
+without (``torch_mesh_worker.remat_step``): on the CPU the two are
+equal bit for bit.
+
 Tolerances: the parameters after 3 steps by ``_assert_params_close`` of
 ``test_torch_train.py``; losses within 1e-5 relative and gradient norms
 within the 1e-2 of ``test_torch_train.py`` (a relu input within rounding
@@ -341,6 +345,19 @@ def test_jax_mesh_doubles_the_grouped_conv_weight_gradients(runs):
         assert _rel(port[name], port_one[name]) <= 1e-3, name
         assert np.linalg.norm(port_one[name]) == pytest.approx(
             np.linalg.norm(g), rel=1e-2), name
+
+
+def test_mesh_remat_step_equals_the_step_without_remat(runs):
+    """On the (2, 2) mesh a float32 step with remat (the encoder under
+    ``torch.utils.checkpoint``, its recompute gathering fc6's and fc7's
+    columns again) equals the step without it: the same metrics and
+    every rank's parameter slices bit for bit."""
+    _, _, _, port = runs
+    for rank in port:
+        res = rank["remat"]
+        assert res["metrics"][1] == res["metrics"][0]
+        assert res["equal"], res["max_diff"]
+        assert res["metrics"] == port[0]["remat"]["metrics"]
 
 
 # ------------------------------------------------------------ forwards

@@ -151,13 +151,41 @@ def grads(device, folder, mesh_shape, check_imports=True):
     return {"split": sorted(engine._split)}
 
 
+def remat_step(device, folder, name, configs, mesh_shape=MESH):
+    """One step of configuration ``name`` on the first feed of
+    ``feeds_<name>.npz`` from ``params.npz``, without and with remat (the
+    frame encoder under ``torch.utils.checkpoint``, so the recompute runs
+    fc6's and fc7's gathers over the model group again): both steps'
+    metrics, and whether this rank's parameter slices after them are
+    bitwise equal (with the largest difference)."""
+    mesh = make_mesh(mesh_shape)
+    kw, opts = configs[name]
+    feed = shard_feed(_feeds(os.path.join(folder, "feeds_%s.npz"
+                                          % name))[0], mesh)
+    metrics, flat = [], []
+    for remat in (False, True):
+        settings, model = _settings(kw, opts, mesh_shape)
+        settings.remat = remat
+        engine = Train(settings, settings.feeder, model, device=device,
+                       params=_params(folder, "params.npz"), mesh=mesh)
+        metrics.append(engine.run_step(dict(feed)))
+        flat.append({k: v.detach() for k, v in engine._flat.items()})
+    _no_jax()
+    return {"metrics": metrics,
+            "equal": all(bool((flat[0][k] == flat[1][k]).all())
+                         for k in flat[0]),
+            "max_diff": max(float((flat[0][k] - flat[1][k]).abs().max())
+                            for k in flat[0])}
+
+
 def parity(device, folder, configs):
-    """``train_steps``, ``forwards`` and ``caption`` in one start of the
-    ranks."""
+    """``train_steps``, ``forwards``, ``caption``, ``grads`` and
+    ``remat_step`` in one start of the ranks."""
     return {"steps": train_steps(device, folder, configs),
             "forwards": forwards(device, folder),
             "caption": caption(device, folder),
-            "grads": grads(device, folder, MESH)}
+            "grads": grads(device, folder, MESH),
+            "remat": remat_step(device, folder, "sgd_ragged_tail", configs)}
 
 
 def packed_training(device, config, model_axis_config, folder):

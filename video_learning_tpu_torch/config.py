@@ -9,13 +9,19 @@ JSON and as YAML otherwise, PyYAML being imported only then: the GPU
 machine has no PyYAML, and a JSON file, which is also valid YAML, serves
 both packages.
 
-Fields of the JAX package that the port reads and checks as it does,
-then leaves: ``compile_cache`` and ``remat`` (logged as ignored);
-``checkpoint_backend: orbax`` raises (a JAX library's format; the port
-writes npz, which both packages load).  ``mesh_shape`` ({"data": N,
-"model": M}) is kept on ``Settings`` for ``Train`` and ``Validation``,
-which build their mesh of ``torch.distributed`` ranks from it
-(``parallel/mesh.py``).  ``host_shards: auto`` shards a training
+``remat`` makes ``Model.apply`` recompute the frame encoder's
+activations in the backward (``torch.utils.checkpoint``), as the JAX
+package's ``jax.checkpoint`` does.  ``logging.email_notify`` ([sender,
+recipient]) asks for the sender's password at the terminal, as the JAX
+package does, and mails errors and the run's end
+(``utils.send_email``).  Fields of the JAX package that the port reads
+and checks as it does, then leaves: ``compile_cache`` (logged as
+ignored: XLA's cache of compiled programs; the port captures its CUDA
+graphs anew in each process); ``checkpoint_backend: orbax`` raises (a
+JAX library's format; the port writes npz, which both packages load).
+``mesh_shape`` ({"data": N, "model": M}) is kept on ``Settings`` for
+``Train`` and ``Validation``, which build their mesh of
+``torch.distributed`` ranks from it (``parallel/mesh.py``).  ``host_shards: auto`` shards a training
 dataset over the mesh's data axis: as many shards as the data size, and
 this rank's data coordinate as its index, so that the ranks of one model
 group read the same rows (one shard outside a process group).  A
@@ -39,7 +45,8 @@ from video_learning_tpu_torch.defs import defs
 from video_learning_tpu_torch.parse_opts import parse_seq, parse_shape
 from video_learning_tpu_torch.utils import (as_num as _num,
                                             configure_logging, debug, error,
-                                            get_datetime_str, info, warning)
+                                            get_datetime_str, info,
+                                            prep_email, warning)
 
 # the Network fields a pipeline spec carries (and a serving artifact
 # records, serving.model_spec)
@@ -349,9 +356,6 @@ class Settings:
         if config.get("compute_dtype"):
             self.compute_dtype = str(config["compute_dtype"])
         self.remat = bool(config.get("remat", False))
-        if self.remat:
-            info("remat: the port does not rematerialize the frame "
-                 "encoder; ignored")
         self.compile_cache = config.get("compile_cache")
         if self.compile_cache:
             info("compile_cache is an XLA cache; the port ignores it")
@@ -409,10 +413,7 @@ class Settings:
             if profile else None)
         self.email_notify = logcfg.get("email_notify")
         if self.email_notify:
-            if len(self.email_notify) != 2:
-                error("Need a sender and recipient email address, got [%s]"
-                      % self.email_notify)
-            warning("email_notify is not ported; no email is sent")
+            self.email_notify = prep_email(self.email_notify)
         self.configure_logging()
 
         # pipelines, in config order
@@ -675,7 +676,7 @@ class Settings:
         configure_logging(
             os.path.join(self.run_folder, "log_%s_%s.log"
                          % (self.run_id, self.timestamp)),
-            self.logging_level)
+            self.logging_level, self.email_notify)
 
     def initialize_from_file(self, init_file):
         if init_file is None:

@@ -626,7 +626,7 @@ def main(argv=None):
                      join(settings.output_folder, basename(settings.logfile)))
         copyfile(settings.init_file,
                  join(settings.output_folder, basename(settings.init_file)))
-    info("Serialization complete")
+    info("Serialization complete", email=True)
 
 
 if __name__ == "__main__":

@@ -14,8 +14,19 @@ pool5 is flattened in NHWC (H, W, C) order, as the JAX package does, so
 fc6's rows line up with its checkpoints.
 
 conv1 runs through ``Conv1Function``, the counterpart of
-``alexnet._conv1_direct`` (``alexnet.py:208-253``): cuDNN forward, and a
-backward whose weight gradient is a hand kernel (``ops/conv1_dw.py``).
+``alexnet._conv1_direct`` (``alexnet.py:208-253``): a cuDNN forward, and
+a backward whose weight gradient is a hand kernel (``ops/conv1_dw.py``)
+or the im2col product (``conv1_dw_im2col``, the counterpart of
+``pallas_kernels.conv1_dw_xla``).  Its forward is the direct 11x11
+stride-4 conv, or the space-to-depth conv of ``alexnet.py:129-176``
+(``conv1_space_to_depth``).  ``apply`` picks the lowerings by argument,
+or, where an argument is None, from the JAX package's environment
+variables, read at each call (``conv1_options``): ``VLT_CONV1_S2D=1``
+the space-to-depth forward, ``VLT_CONV1_DW_IMPL`` the weight gradient
+("shifted", "blocked" or "im2col"; ``VLT_CONV1_FAST_DW=1`` or
+``VLT_CONV1_PALLAS_DW=1`` mean "im2col"), ``VLT_FREEZE_CONV1=1`` conv1's
+parameters detached, as ``stop_gradient`` does (``alexnet.py:269-273``).
+Unset, they give the direct forward, "shifted" and no freeze.
 
 The int8 serving forward (``apply_int8``), its static-scale calibration
 (``apply_calib``) and the once-per-checkpoint weight quantization
@@ -24,7 +35,6 @@ fc6..fc8 in w8a8 (``layers.conv_apply_int8`` / ``fc_apply_int8``), conv1
 in the compute dtype, LRN and pooling unchanged.  ``load_bvlc_weights``
 reads a pretrained bvlc ``.npy`` ({layer: [w HWIO, b]}, checked against
 its ``.sha256`` sidecar when there is one) for ``init(weights_file=...)``.
-Not ported yet: the space-to-depth forward.
 """
 
 import hashlib
@@ -135,22 +145,83 @@ def param_groups(params, prefix=""):
     return regular, modified
 
 
+CONV1_FWD = ("direct", "s2d")
 CONV1_DW = {"shifted": conv1_dw_ops.conv1_dw_shifted,
-            "blocked": conv1_dw_ops.conv1_dw}
+            "blocked": conv1_dw_ops.conv1_dw,
+            "im2col": conv1_dw_ops.conv1_dw_im2col}
+
+
+def conv1_options(conv1_fwd=None, conv1_dw=None, freeze_conv1=None):
+    """(conv1_fwd, conv1_dw, freeze_conv1) with each None read from the
+    JAX package's environment variables (module docstring); a value
+    outside the lists, passed or read, raises."""
+    if conv1_fwd is None:
+        conv1_fwd = "s2d" if os.environ.get("VLT_CONV1_S2D", "0") == "1" \
+            else "direct"
+    if conv1_dw is None:
+        conv1_dw = os.environ.get("VLT_CONV1_DW_IMPL", "")
+        if not conv1_dw and os.environ.get(
+                "VLT_CONV1_FAST_DW",
+                os.environ.get("VLT_CONV1_PALLAS_DW", "0")) == "1":
+            conv1_dw = "im2col"
+        conv1_dw = conv1_dw or "shifted"
+    if freeze_conv1 is None:
+        freeze_conv1 = os.environ.get("VLT_FREEZE_CONV1") == "1"
+    if conv1_fwd not in CONV1_FWD:
+        error("conv1_fwd must be one of %s, got %r"
+              % (list(CONV1_FWD), conv1_fwd))
+    if conv1_dw not in CONV1_DW:
+        error("conv1_dw (or VLT_CONV1_DW_IMPL) must be one of %s, got %r"
+              % (sorted(CONV1_DW), conv1_dw))
+    return conv1_fwd, conv1_dw, bool(freeze_conv1)
+
+
+def conv1_space_to_depth(x, w, b):
+    """relu(conv(x, w, stride 4, SAME) + b) as ``alexnet.py:129-176``
+    lowers it: x (N, H, W, C) padded as SAME pads it, and below and right
+    to whole 4x4 blocks, rearranged to (N, H/4, W/4, 16C); the OIHW
+    (cout, C, 11, 11) weight padded to 12x12 taps (the 12th zero) and
+    rearranged to a dense (cout, 16C, 3, 3) one; one stride-1 VALID conv,
+    sliced to the SAME output, the bias added in the compute dtype.
+    Input channel (di*4 + dj)*C + c of block position (P, Q) is padded
+    pixel (4P + di, 4Q + dj, c)."""
+    n, h, wd, c = x.shape
+    cout = w.shape[0]
+    out_h, out_w = -(-h // 4), -(-wd // 4)
+    pad_h = max((out_h - 1) * 4 + 11 - h, 0)
+    pad_w = max((out_w - 1) * 4 + 11 - wd, 0)
+    top, left = pad_h // 2, pad_w // 2
+    eh, ew = -(h + pad_h) % 4, -(wd + pad_w) % 4
+    x = F.pad(x, (0, 0, left, pad_w - left + ew, top, pad_h - top + eh))
+    bh, bw = x.shape[1] // 4, x.shape[2] // 4
+    x = x.reshape(n, bh, 4, bw, 4, c).permute(0, 1, 3, 2, 4, 5) \
+        .reshape(n, bh, bw, 16 * c)
+    wp = F.pad(w, (0, 1, 0, 1)).reshape(cout, c, 3, 4, 3, 4)
+    wp = wp.permute(0, 3, 5, 1, 2, 4).reshape(cout, 16 * c, 3, 3) \
+        .contiguous(memory_format=torch.channels_last)
+    y = F.conv2d(x.permute(0, 3, 1, 2), wp)
+    y = y[:, :, :out_h, :out_w] + b.to(y.dtype)[:, None, None]
+    return F.relu(y).permute(0, 2, 3, 1)
 
 
 class Conv1Function(torch.autograd.Function):
     """relu(conv(x, w, stride 4, SAME) + b) for the stem conv, NHWC in
     and out, w OIHW, with the backward of ``alexnet._conv1_direct``:
     the output gradient masked by the relu, ``db`` summed in float32 and
-    cast to b's dtype, ``dW`` from the conv1 weight-gradient kernel
-    (``dw_impl``: "shifted" or "blocked") cast to w's dtype, and ``dx``
-    only when the frames need a gradient (never in training), as the
-    exact input gradient of the conv."""
+    cast to b's dtype, ``dW`` from the conv1 weight gradient (``dw_impl``,
+    a key of ``CONV1_DW``) cast to w's dtype, and ``dx`` only when the
+    frames need a gradient (never in training), as the exact input
+    gradient of the conv.  ``fwd_impl`` "direct" runs the conv as it is,
+    "s2d" as ``conv1_space_to_depth``; the backward is the same function
+    of (x, g) for both.  A parameter that needs no gradient (a frozen
+    conv1) gets none computed."""
 
     @staticmethod
-    def forward(ctx, x, w, b, dw_impl):
-        out = conv_apply({"w": w, "b": b}, x, (4, 4), "SAME", relu=True)
+    def forward(ctx, x, w, b, dw_impl, fwd_impl="direct"):
+        if fwd_impl == "s2d":
+            out = conv1_space_to_depth(x, w, b)
+        else:
+            out = conv_apply({"w": w, "b": b}, x, (4, 4), "SAME", relu=True)
         ctx.save_for_backward(x, w, out)
         ctx.dw_impl = dw_impl
         ctx.b_dtype = b.dtype
@@ -160,9 +231,11 @@ class Conv1Function(torch.autograd.Function):
     def backward(ctx, g):
         x, w, out = ctx.saved_tensors
         g = g * (out > 0).to(g.dtype)
-        db = g.to(torch.float32).sum((0, 1, 2)).to(ctx.b_dtype)
-        dw = hwio_to_oihw(CONV1_DW[ctx.dw_impl](x, g)).to(w.dtype)
-        dx = None
+        dx = dw = db = None
+        if ctx.needs_input_grad[2]:
+            db = g.to(torch.float32).sum((0, 1, 2)).to(ctx.b_dtype)
+        if ctx.needs_input_grad[1]:
+            dw = hwio_to_oihw(CONV1_DW[ctx.dw_impl](x, g)).to(w.dtype)
         if ctx.needs_input_grad[0]:
             (top, bottom), (left, right) = (same_pads(x.shape[1], 11, 4),
                                             same_pads(x.shape[2], 11, 4))
@@ -171,22 +244,23 @@ class Conv1Function(torch.autograd.Function):
                 (n, c, h + top + bottom, wd + left + right), w,
                 g.permute(0, 3, 1, 2), stride=4)
             dx = dx[:, :, top:top + h, left:left + wd].permute(0, 2, 3, 1)
-        return dx, dw, db, None
+        return dx, dw, db, None, None
 
 
-def _forward(params, x, final_layer, compute_dtype, conv1_dw, conv, fc):
-    """The AlexNet stages with conv2..conv5 as ``conv(name, x)`` and
-    fc6..fc8 as ``fc(name, x)`` (fc6 and fc7 followed by relu)."""
+def _forward(params, x, final_layer, compute_dtype, conv1, conv, fc):
+    """The AlexNet stages with conv1 by ``conv1`` (the ``conv1_options``
+    triple), conv2..conv5 as ``conv(name, x)`` and fc6..fc8 as
+    ``fc(name, x)`` (fc6 and fc7 followed by relu)."""
     if final_layer is None:
         final_layer = "prob"
-    if conv1_dw not in CONV1_DW:
-        error("conv1_dw must be one of %s, got %r"
-              % (sorted(CONV1_DW), conv1_dw))
+    conv1_fwd, conv1_dw, freeze_conv1 = conv1
     w1, b1 = params["conv1"]["w"], params["conv1"]["b"]
+    if freeze_conv1:
+        w1, b1 = w1.detach(), b1.detach()
     if compute_dtype is not None:
         x = x.to(compute_dtype)
         w1 = w1.to(compute_dtype)
-    x = Conv1Function.apply(x, w1, b1, conv1_dw)
+    x = Conv1Function.apply(x, w1, b1, conv1_dw, conv1_fwd)
     x = local_response_normalization(x)
     x = max_pool(x, (3, 3), (2, 2), "VALID")
     x = conv("conv2", x)
@@ -213,11 +287,14 @@ def _conv_stride_groups(name):
 
 
 def apply(params, x, final_layer="prob", compute_dtype=None,
-          conv1_dw="shifted"):
+          conv1_fwd=None, conv1_dw=None, freeze_conv1=None):
     """Forward pass.  x: (N, H, W, 3) (BGR, preprocessed).  Returns the
     float32 encoding at ``final_layer`` (fc6/fc7) or the fc8 logits.
-    ``conv1_dw`` picks conv1's weight-gradient kernel, "shifted" (the
-    formulation the JAX model reaches) or "blocked"."""
+    ``conv1_fwd`` ("direct" or "s2d") picks conv1's forward, ``conv1_dw``
+    ("shifted", "blocked" or "im2col") its weight gradient, and
+    ``freeze_conv1`` detaches its parameters; each None is read from the
+    environment (``conv1_options``)."""
+    conv1 = conv1_options(conv1_fwd, conv1_dw, freeze_conv1)
 
     def conv(name, inp):
         strides, groups = _conv_stride_groups(name)
@@ -227,8 +304,13 @@ def apply(params, x, final_layer="prob", compute_dtype=None,
     def fc(name, inp):
         return fc_apply(params[name], inp, compute_dtype)
 
-    return _forward(params, x, final_layer, compute_dtype, conv1_dw, conv,
-                    fc)
+    return _forward(params, x, final_layer, compute_dtype, conv1, conv, fc)
+
+
+# conv1 of the int8 serving forward and its calibration: the direct
+# forward, as JAX's apply_int8 and apply_calib run it whatever the
+# environment says (alexnet.py:321, 367)
+_SERVING_CONV1 = ("direct", "shifted", False)
 
 
 def apply_int8(params, x, final_layer="prob", compute_dtype=None):
@@ -248,8 +330,8 @@ def apply_int8(params, x, final_layer="prob", compute_dtype=None):
     def fc(name, inp):
         return fc_apply_int8(params[name], inp)
 
-    return _forward(params, x, final_layer, compute_dtype, "shifted", conv,
-                    fc)
+    return _forward(params, x, final_layer, compute_dtype, _SERVING_CONV1,
+                    conv, fc)
 
 
 def apply_calib(params, x, final_layer="prob", compute_dtype=None):
@@ -276,8 +358,8 @@ def apply_calib(params, x, final_layer="prob", compute_dtype=None):
     def fc(name, inp):
         return fc_apply(params[name], tap(name, inp), compute_dtype)
 
-    return _forward(params, x, final_layer, compute_dtype, "shifted", conv,
-                    fc), taps
+    return _forward(params, x, final_layer, compute_dtype, _SERVING_CONV1,
+                    conv, fc), taps
 
 
 def quantize_params(params, act_ranges=None):

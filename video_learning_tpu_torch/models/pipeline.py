@@ -23,7 +23,10 @@ classification:
   encoder runs its w8a8 forward, everything after it (LSTM, FCs, the
   caption decode) stays in float; ``quantize_params`` pre-quantizes the
   encoders' weights once and ``calib_taps`` collects the activation
-  ranges that int8_static bakes in.
+  ranges that int8_static bakes in,
+* remat (``settings.remat``, ``pipeline.py:385-390``): a frame encoder
+  that ``supports_remat`` runs under ``torch.utils.checkpoint`` when
+  gradients are taken (not the calibration forward, as in JAX).
 
 On a mesh (``apply(..., mesh=...)``, a ``parallel.mesh.Mesh`` of more
 than one rank) ``params`` holds this rank's slices of the leaves the
@@ -41,6 +44,7 @@ checkpoints move between the packages by name (``checkpoint.py``).
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from video_learning_tpu_torch.defs import defs
 from video_learning_tpu_torch.models import lstm as lstm_mod
@@ -333,8 +337,9 @@ class Model:
 
     # --------------------------------------------------------------- apply
     def apply(self, params, feed, train=False, dropout_generator=None,
-              conv1_dw="shifted", decode=False, quantize=None,
-              calib_taps=None, mesh=None):
+              conv1_dw=None, decode=False, quantize=None,
+              calib_taps=None, mesh=None, conv1_fwd=None,
+              freeze_conv1=None):
         """Run the full DAG.  feed: {input_key: tensor or array}; arrays
         move to the parameters' device.  Returns float32 logits,
         (num_items, num_classes) for classification and (B*T,
@@ -349,7 +354,12 @@ class Model:
         mask (JAX ``fold_in(rng, i)``); a list gives pipeline i its own
         generator ``[i]`` as it stands (``Train`` seeds them so, and keeps
         them for the graphs that draw from them).
-        ``conv1_dw`` picks the stem conv's weight-gradient kernel.
+        ``conv1_fwd``, ``conv1_dw`` and ``freeze_conv1`` pick the stem
+        conv's forward and weight gradient and freeze its parameters
+        (``alexnet.apply``; None reads the environment).  With
+        ``settings.remat`` and grad mode on, each frame encoder that
+        ``supports_remat`` runs under ``torch.utils.checkpoint``: its
+        activations are recomputed in the backward, not kept.
         ``quantize`` ("int8" / "int8_static") runs the frame encoders'
         w8a8 serving forward (forward only: refused in training), on raw
         or ``quantize_params`` parameters.  ``calib_taps``, a dict, runs
@@ -363,7 +373,9 @@ class Model:
                                        self.sharded_leaves(mesh.model), mesh)
             with mesh_mod.use(mesh):
                 return self.apply(params, feed, train, dropout_generator,
-                                  conv1_dw, decode, quantize, calib_taps)
+                                  conv1_dw, decode, quantize, calib_taps,
+                                  conv1_fwd=conv1_fwd,
+                                  freeze_conv1=freeze_conv1)
         if quantize is not None and train:
             error("quantize=%s is a serving (forward-only) mode; "
                   "training gradients through int8 rounding are zero"
@@ -371,6 +383,8 @@ class Model:
         if calib_taps is not None and quantize is not None:
             error("calibration runs the float forward; it cannot be "
                   "combined with quantize=%s" % quantize)
+        conv1 = {"conv1_fwd": conv1_fwd, "conv1_dw": conv1_dw,
+                 "freeze_conv1": freeze_conv1}
         device = _tree_device(params)
         feed = {k: (v if isinstance(v, torch.Tensor)
                     else torch.as_tensor(np.asarray(v))).to(device)
@@ -385,7 +399,7 @@ class Model:
                 gen_i = torch.Generator(dropout_generator.device).manual_seed(
                     fold_in(dropout_generator.initial_seed(), i))
             logits = self._apply_pipeline(params[spec["name"]], spec, feed,
-                                          outputs, train, gen_i, conv1_dw,
+                                          outputs, train, gen_i, conv1,
                                           decode, quantize, calib_taps)
             if decode is _DECODER_INPUTS and spec["caption"]:
                 return logits
@@ -406,7 +420,7 @@ class Model:
                           quantize=quantize, mesh=mesh)
 
     def _apply_pipeline(self, p, spec, feed, outputs, train,
-                        dropout_generator, conv1_dw, decode, quantize,
+                        dropout_generator, conv1, decode, quantize,
                         calib_taps):
         net, name = spec["net"], spec["name"]
         inputs, dims, fpcs, cpvs = [], [], [], []
@@ -437,9 +451,20 @@ class Model:
         if calib is not None:
             x, calib_taps[name] = calib
         else:
-            x = vec.apply(p.get(vec.param_key), x,
-                          compute_dtype=self.compute_dtype,
-                          conv1_dw=conv1_dw, quant=quantize)
+            def encode(vp, inp):
+                return vec.apply(vp, inp, compute_dtype=self.compute_dtype,
+                                 quant=quantize, **conv1)
+
+            remat = getattr(self.settings, "remat", False)
+            if remat and vec.supports_remat and torch.is_grad_enabled():
+                # no RNG state to keep: the encoder draws no random
+                # numbers (dropout comes after it), and reading the CUDA
+                # generator's state would break a CUDA graph's capture
+                x = torch.utils.checkpoint.checkpoint(
+                    encode, p.get(vec.param_key), x, use_reentrant=False,
+                    preserve_rng_state=False)
+            else:
+                x = encode(p.get(vec.param_key), x)
         dim = int(x.shape[-1])
         if self.settings.print_tensors:
             debug("Vectorized output [%s] shape=%s" % (name, tuple(x.shape)))

@@ -8,11 +8,14 @@ Contract with the pipeline DAG (models/pipeline.py):
 * ``init(generator, shape, device)`` - build the parameter tree; fills
                          ``train_regular`` / ``train_modified`` with
                          relative parameter paths ("" = the whole tree),
-* ``apply(params, x, compute_dtype, conv1_dw, quant)`` - run it;
-                         ``conv1_dw`` picks the stem conv's
-                         weight-gradient kernel and only the DCNN reads it;
-                         ``quant`` ("int8" / "int8_static") selects the
-                         DCNN's w8a8 serving forward,
+* ``apply(params, x, compute_dtype, quant, **conv1)`` - run it;
+                         ``conv1`` (``conv1_fwd``, ``conv1_dw``,
+                         ``freeze_conv1``: ``alexnet.apply``'s) picks the
+                         stem conv's lowerings and only the DCNN reads
+                         it; ``quant`` ("int8" / "int8_static") selects
+                         the DCNN's w8a8 serving forward,
+* ``supports_remat``   - the pipeline may run ``apply`` under
+                         ``torch.utils.checkpoint`` (``settings.remat``),
 * ``quantize_params(params, act_ranges)`` / ``apply_calib(params, x,
   compute_dtype)`` - the int8 form of the params and the calibration
                          forward, or None where the strategy has no int8
@@ -34,6 +37,9 @@ class Vectorizer:
     # init() receives the full (H, W, C) input shape rather than the
     # flattened trailing dim
     wants_image_input = False
+    # apply() costs enough that recomputing it in the backward, rather
+    # than keeping its activations, can pay off (settings.remat)
+    supports_remat = False
 
     def __init__(self):
         self.train_regular = []
@@ -66,16 +72,14 @@ class Vectorizer:
         ``in_dim``."""
         return in_dim
 
-    def apply(self, params, x, compute_dtype=None, conv1_dw="shifted",
-              quant=None):
+    def apply(self, params, x, compute_dtype=None, quant=None, **conv1):
         raise NotImplementedError
 
 
 class NOP(Vectorizer):
     name = "nop"
 
-    def apply(self, params, x, compute_dtype=None, conv1_dw="shifted",
-              quant=None):
+    def apply(self, params, x, compute_dtype=None, quant=None, **conv1):
         if quant:
             warning_once("quantize=%s has no effect on a [nop] "
                          "representation" % quant, key="nop-quantize")
@@ -86,6 +90,7 @@ class DCNN(Vectorizer):
     name = "dcnn"
     param_key = "dcnn"
     wants_image_input = True
+    supports_remat = True
 
     def __init__(self, num_classes, frame_encoding_layer="fc7",
                  weights_file=None):
@@ -109,8 +114,7 @@ class DCNN(Vectorizer):
         return alexnet.output_dim(self.frame_encoding_layer,
                                   self.num_classes)
 
-    def apply(self, params, x, compute_dtype=None, conv1_dw="shifted",
-              quant=None):
+    def apply(self, params, x, compute_dtype=None, quant=None, **conv1):
         self.require_input(x.shape, 3)
         if quant in ("int8", "int8_static"):
             # the forward-only serving path; static scales ride in the
@@ -118,7 +122,7 @@ class DCNN(Vectorizer):
             return alexnet.apply_int8(params, x, self.frame_encoding_layer,
                                       compute_dtype=compute_dtype)
         return alexnet.apply(params, x, self.frame_encoding_layer,
-                             compute_dtype=compute_dtype, conv1_dw=conv1_dw)
+                             compute_dtype=compute_dtype, **conv1)
 
     def quantize_params(self, params, act_ranges=None):
         return alexnet.quantize_params(params, act_ranges=act_ranges)
@@ -145,8 +149,7 @@ class FC(Vectorizer):
     def output_dim(self, in_dim):
         return self.fc_output_dim
 
-    def apply(self, params, x, compute_dtype=None, conv1_dw="shifted",
-              quant=None):
+    def apply(self, params, x, compute_dtype=None, quant=None, **conv1):
         self.require_input(x.shape, 2)
         if quant:
             warning_once("quantize=%s is implemented for DCNN frame "

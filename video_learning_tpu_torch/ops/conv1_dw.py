@@ -24,6 +24,10 @@ the SAME geometry that ``conv1_raw_geometry`` computes here;
 ``conv1_s2d_geometry`` builds the same rows as a tensor, by gather, for
 the plain versions.  The products run in x's dtype and accumulate in
 float32; the result is float32.
+
+``conv1_dw_im2col`` is the port of ``pallas_kernels.conv1_dw_xla``, a
+formulation the JAX package runs outside Pallas: torch ops on any
+device, no kernel of this repository and no launch count.
 """
 
 import torch
@@ -261,3 +265,33 @@ def conv1_dw_shifted(x, gout, block_rows=None):
 
 
 graphs.register_wrapper(conv1_dw_shifted)
+
+
+def conv1_dw_im2col(x, gout, chunk=256):
+    """The same gradient as ``conv1_dw``, as ``conv1_dw_xla`` computes it:
+    the explicit (positions, C*11*11) patch matrix of ``chunk`` images at
+    a time (zero images pad the last chunk; the feature order (C, KH,
+    KW) of ``conv_general_dilated_patches``), each chunk's (C*121, K) x
+    (K, cout) product in float32 on x's dtype's values, added up.
+    Returns (11, 11, C, cout) float32."""
+    n, h, w, c = x.shape
+    oh, ow, cout = gout.shape[1], gout.shape[2], gout.shape[3]
+    chunk = min(int(chunk), n)
+    pad_n = -n % chunk
+    if pad_n:
+        x = F.pad(x, (0, 0, 0, 0, 0, 0, 0, pad_n))
+        gout = F.pad(gout, (0, 0, 0, 0, 0, 0, 0, pad_n))
+    pad_h = max((oh - 1) * BLOCK + KERNEL - h, 0)
+    pad_w = max((ow - 1) * BLOCK + KERNEL - w, 0)
+    k = c * KERNEL * KERNEL
+    dw = torch.zeros((k, cout), dtype=torch.float32, device=x.device)
+    for i in range(0, x.shape[0], chunk):
+        xs = F.pad(x[i:i + chunk].permute(0, 3, 1, 2),
+                   (pad_w // 2, pad_w - pad_w // 2,
+                    pad_h // 2, pad_h - pad_h // 2))
+        patches = F.unfold(xs, KERNEL, stride=BLOCK)    # (chunk, k, oh*ow)
+        gs = gout[i:i + chunk].to(x.dtype).reshape(-1, cout)
+        dw += torch.matmul(
+            patches.transpose(0, 1).reshape(k, -1).to(torch.float32),
+            gs.to(torch.float32))
+    return dw.reshape(c, KERNEL, KERNEL, cout).permute(1, 2, 0, 3)

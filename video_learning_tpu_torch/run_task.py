@@ -433,7 +433,7 @@ def main(init_file, device="cuda", backend=None):
             do_test(settings, val, eval_params, feeder, model, writer)
     finally:
         writer.close()
-    info("Run [%s] complete." % settings.run_id)
+    info("Run [%s] complete." % settings.run_id, email=True)
 
 
 def cli(argv=None):

@@ -402,8 +402,14 @@ class Train:
     ``params``: a parameter tree to start from (e.g. carried from the JAX
     package with ``checkpoint.from_jax_flat``) instead of fresh ones from
     ``seed``; its names must be the model's.  ``device`` defaults to the
-    GPU; pass ``device="cpu"`` to train on the CPU.  ``conv1_dw`` picks
-    the stem conv's weight-gradient kernel ("shifted" or "blocked").
+    GPU; pass ``device="cpu"`` to train on the CPU.  ``conv1_fwd``,
+    ``conv1_dw`` and ``freeze_conv1`` pick the stem conv's forward
+    ("direct" or "s2d") and weight gradient ("shifted", "blocked" or
+    "im2col") and freeze its parameters (``alexnet.apply``; None reads
+    the JAX package's environment variables at each eager step, and a
+    captured step keeps what its capture read).  A frozen conv1 gets
+    zero gradients, which the optimizer chain still runs on, as optax
+    does on ``jax.grad`` of a ``stop_gradient``.
     ``graphs`` (default: on for a CUDA device) runs the step and
     ``compile_scan_steps`` as CUDA graph replays after ``WARMUP_STEPS``
     eager steps at each feed geometry; ``graphs=False`` keeps the eager
@@ -420,8 +426,8 @@ class Train:
     ``load_state_dict`` copies into them, and nothing may rebind them."""
 
     def __init__(self, settings, feeder, model, seed=0, params=None,
-                 device="cuda", conv1_dw="shifted", graphs=None,
-                 mesh=None):
+                 device="cuda", conv1_dw=None, graphs=None,
+                 mesh=None, conv1_fwd=None, freeze_conv1=None):
         if not settings.train:
             error("Train needs settings.train")
         self.device = resolve_device(device)
@@ -444,7 +450,8 @@ class Train:
         self.settings = settings
         self.model = model
         self.feeder = feeder
-        self.conv1_dw = conv1_dw
+        self.conv1 = {"conv1_fwd": conv1_fwd, "conv1_dw": conv1_dw,
+                      "freeze_conv1": freeze_conv1}
         info("Creating training: optimizer %s, base lr %s, %d classes"
              % (settings.train.optimizer, settings.train.base_lr,
                 settings.num_classes))
@@ -621,7 +628,7 @@ class Train:
             logits = self.model.apply(
                 self.params, feed, train=True,
                 dropout_generator=generators,
-                conv1_dw=self.conv1_dw, mesh=self.mesh)
+                mesh=self.mesh, **self.conv1)
         return logits, feed["labels"], feed.get("label_mask")
 
     def _grad(self, loss):

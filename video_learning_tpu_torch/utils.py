@@ -2,11 +2,15 @@
 the PyTorch port.
 
 A short counterpart of ``video_learning_tpu/utils.py``: the same logger
-name ("vlt") and the same ``error`` contract (log, then raise
-``FrameworkError``), the config scalar check ``as_num``, the run-folder
-helpers, ``elapsed_str``, ``sublist``, ``duplicates``, the file readers
-and the label encoder, without that module's email notifier or its JAX
-debug printing.
+name ("vlt") and the same ``error`` contract (log, mail, then raise
+``FrameworkError``), the best-effort email notifier (``prep_email``
+asks for the sender's password, ``configure_logging(...,
+email_notify)`` turns it on, ``send_email`` mails; ``error`` mails, and
+``info`` and ``warning`` do when given ``email=True``), the config
+scalar check
+``as_num``, the run-folder helpers, ``elapsed_str``, ``sublist``,
+``duplicates``, the file readers and the label encoder, without that
+module's JAX debug printing.
 """
 
 import logging
@@ -16,14 +20,54 @@ import time
 import numpy as np
 
 _LOGGER = "vlt"
+# (sender, password, recipient) of the email notifier, or None (off);
+# set by configure_logging
+_email_notify = None
 
 
 class FrameworkError(Exception):
     """Raised by error(); carries the logged message."""
 
 
+def send_email(message, message_type):
+    """Best-effort email notification (``utils.py:89-110`` of the JAX
+    package): the same subject, body, server and call order; off unless
+    ``configure_logging`` was given a notifier; a failure is logged and
+    ignored."""
+    if not _email_notify:
+        return
+    try:
+        import smtplib
+        sender, passw, recipient = _email_notify
+        subject = "video-learning-tpu | %s : %s" % (os.uname()[1],
+                                                    message_type)
+        body = "\r\n".join(["To: %s" % recipient, "From: %s" % sender,
+                             "Subject: %s" % subject, "", message])
+        server = smtplib.SMTP("smtp.gmail.com", 587, timeout=10)
+        server.ehlo()
+        server.starttls()
+        server.login(sender, passw)
+        server.sendmail(sender, [recipient], body)
+        server.quit()
+    except Exception:
+        logging.getLogger(_LOGGER).warning(
+            "Email notification failed (ignored).")
+
+
+def prep_email(tofrom):
+    """(sender, password, recipient) of a [sender, recipient] pair, the
+    password asked for at the terminal."""
+    if not tofrom or len(tofrom) != 2:
+        error("Need a sender and recipient email address, got [%s]" % tofrom)
+    import getpass
+    passw = getpass.getpass(
+        prompt="Enter password for sender email [%s]: " % tofrom[0])
+    return (tofrom[0], passw, tofrom[1])
+
+
 def error(msg):
     logging.getLogger(_LOGGER).error(msg)
+    send_email(str(msg), "ERROR")
     raise FrameworkError(msg)
 
 
@@ -43,12 +87,16 @@ def as_num(value, field, conv=float, minimum=None):
     return out
 
 
-def info(message):
+def info(message, email=False):
     logging.getLogger(_LOGGER).info(message)
+    if email:
+        send_email(message, "INFO")
 
 
-def warning(message):
+def warning(message, email=False):
     logging.getLogger(_LOGGER).warning(message)
+    if email:
+        send_email(message, "WARNING")
 
 
 def debug(message):
@@ -67,10 +115,12 @@ def warning_once(message, key=None):
     warning(message)
 
 
-def configure_logging(logfile, logging_level):
+def configure_logging(logfile, logging_level, email_notify=None):
     """File (when ``logfile`` is given) and console handlers on the "vlt"
     logger at ``logging_level`` (an int or a "logging.INFO"-style
-    string)."""
+    string); ``email_notify`` ((sender, password, recipient) from
+    ``prep_email``, or None) turns the email notifier on or off."""
+    global _email_notify
     if isinstance(logging_level, str):
         resolved = getattr(logging, logging_level.split(".")[-1], None)
         if not isinstance(resolved, int):
@@ -93,6 +143,7 @@ def configure_logging(logfile, logging_level):
     ch = logging.StreamHandler()
     ch.setFormatter(fmt)
     logger.addHandler(ch)
+    _email_notify = email_notify
 
 
 def ensure_console_logging(level=logging.INFO):
