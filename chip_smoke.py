@@ -279,7 +279,7 @@ Phases (each raises on failure; nothing is caught and passed over):
    a size on the mesh and on the single process (recorded, not held:
    the ranks share one card), and every rank exits 0 after rank 0's
    stop.
-15. conv1's other lowerings, the frozen conv1 and remat, last, in a
+15. conv1's other lowerings, the frozen conv1 and remat, in a
    process of its own (after phases 12 and 14 ran other processes on
    the card, this process's profiler loses kernel records of replays).
    At a training step's 2048 frames in bf16, as CUDA-graph replays in
@@ -301,6 +301,30 @@ Phases (each raises on failure; nothing is caught and passed over):
    steps without remat (phase 11's rule; bitwise equality printed), and
    what one remat replay runs.  One s2d and one im2col float32 step at
    1 clip, card against CPU (phase 5's rule).
+
+16. CUDA graphs over NCCL, last, in a process of its own that joins a
+   one-rank NCCL group bound to the card (``device_id``) and leaves it
+   at its end.  The card holds one rank, and on a world of one the port
+   issues no collective, so the phase's mesh (``OneRankNcclMesh``)
+   reports two ranks while its data and model axes stay 1, and issues
+   every collective on that group, counting those a capture records.
+   On it, with TF32 off and cuDNN deterministic: phase 11's float32
+   8-clip steps in both configurations, 3 replays after a restore
+   bitwise equal to 3 eager steps on the mesh and, against the eager
+   steps without a mesh, bitwise or within phase 11's rule (printed),
+   each capture recording the step's ``data_sum``; ``compile_scan_steps(3)``
+   held the same way (3 ``data_sum``); the classifier's serving module
+   at buckets 1, 8 and 32 in float32, int8 and int8_static, replays
+   bitwise equal to the eager module on the mesh or within 1e-5 x
+   max(1, max|logit|), each dynamic-int8 capture holding the amax's
+   ``data_max``; ``Validation.run_forward`` of one 8-clip batch and the
+   greedy and beam-4 decodes of 64 items (phase 6's tie rule); the list
+   form of all_gather inside a capture.  Then phase 5's 128-clip bf16
+   step graphed on the mesh and without one, each of its first three
+   steps launching lrn 2, lrn_bwd 2, lstm_step 32 and conv1_dw_shifted
+   1 (the replay's counted by the profiler), its capture recording the
+   ``data_sum``, the two timed in turns.  The model axis's column split
+   needs two ranks, and so two cards: not shown.
 
 Phases 3-10 run the port's defaults, which on the card are graph
 replays: a program's first call at a shape runs eagerly and then
@@ -324,6 +348,7 @@ nonzero and prints no result.
 """
 
 import argparse
+import collections
 import gc
 import glob
 import http.client
@@ -345,6 +370,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from video_learning_tpu_torch import checkpoint, run_task, serving
@@ -368,6 +394,9 @@ from video_learning_tpu_torch.ops import int8_mm as int8_mod
 from video_learning_tpu_torch.ops import lrn as lrn_mod
 from video_learning_tpu_torch.ops import lstm_step as lstm_mod
 from video_learning_tpu_torch.ops.preprocess import make_preprocessor
+from video_learning_tpu_torch.parallel import launch
+from video_learning_tpu_torch.parallel import mesh as mesh_mod
+from video_learning_tpu_torch.parallel.mesh import Mesh
 from video_learning_tpu_torch.tools import check_serialized_data
 from video_learning_tpu_torch.tools import combine_logits
 from video_learning_tpu_torch.tools import compute_evaluation_stats
@@ -3493,6 +3522,14 @@ GRAPH_STEPS = 3         # steps compared, and the compared scan's length
 SCAN_STEPS = 6          # steps of the timed compile_scan_steps program
 GRAPH_BUCKETS = [1, 8, 32]
 GRAPH_WATCH = ["clf/output_fc/w"]
+# the float32 step's two configurations
+GRAPH_CONFIGS = {"adam_ema_watch": {"flagship": {"optimizer": "adam",
+                                                 "base_lr": 1e-4},
+                                    "train": {"ema_decay": 0.9},
+                                    "watch": GRAPH_WATCH},
+                 "sgd_accum_steps_2": {"train": {"accum_steps": 2}}}
+
+
 def replay_counts(what, eager_fn, graphed_fn, want, program):
     """The kernels that one replay of ``program`` (``graphed_fn``) runs,
     counted from the profiler's kernel records by symbol (``_Meter``,
@@ -3620,12 +3657,12 @@ def dropout_on_card(results):
     torch.cuda.empty_cache()
 
 
-def graph_engines(opts, with_graphed=True):
+def graph_engines(opts, with_graphed=True, mesh=None):
     """A float32 eager engine and a graphed one at GRAPH_CLIPS clips,
-    dropout 0.5, from one seed; the graphed one has run its warmup steps
-    and one replay and is then restored to the eager one's state (a
-    restore after the capture).  Without ``with_graphed``: (eager, None,
-    processor)."""
+    dropout 0.5, from one seed, on ``mesh`` if given; the graphed one has
+    run its warmup steps and one replay and is then restored to the eager
+    one's state (a restore after the capture).  Without
+    ``with_graphed``: (eager, None, processor)."""
     engines = []
     for graphs in (False, True)[:1 + with_graphed]:
         settings, model = training_flagship(GRAPH_CLIPS, "float32",
@@ -3636,7 +3673,7 @@ def graph_engines(opts, with_graphed=True):
         settings.remat = opts.get("remat", False)
         settings.watch_tensors = opts.get("watch")
         engines.append(Train(settings, settings.feeder, model, seed=0,
-                             device="cuda", graphs=graphs))
+                             device="cuda", graphs=graphs, mesh=mesh))
     processor = settings.feeder.datasets[0].processor
     if not with_graphed:
         return engines[0], None, processor
@@ -3711,12 +3748,7 @@ def graphed_step_vs_eager(results):
     out = {}
     want = {"lrn": 2, "lrn_bwd": 2, "lstm_step": FPC * LAYERS,
             "conv1_dw": 0, "conv1_dw_shifted": 1}
-    configs = {"adam_ema_watch": {"flagship": {"optimizer": "adam",
-                                               "base_lr": 1e-4},
-                                  "train": {"ema_decay": 0.9},
-                                  "watch": GRAPH_WATCH},
-               "sgd_accum_steps_2": {"train": {"accum_steps": 2}}}
-    for name, opts in configs.items():
+    for name, opts in GRAPH_CONFIGS.items():
         accum = opts.get("train", {}).get("accum_steps", 1)
         eager, graphed, processor = graph_engines(opts)
         start = eager.state_dict()
@@ -4697,7 +4729,6 @@ def pickle_rows(path):
 
 def phase_mesh(results, folder, train_path):
     """Phase 12: the (data x model) mesh as ranks sharing the card."""
-    from video_learning_tpu_torch.parallel import launch
     log("phase 12: a mesh of gloo ranks sharing %s (this measures the "
         "code, not multi-GPU scaling)" % torch.cuda.get_device_name(0))
     work = os.path.join(folder, "mesh12")
@@ -5527,7 +5558,6 @@ class _ServingRanks(threading.Thread):
 
     def __init__(self, folder):
         super().__init__(name="phase14-ranks")
-        from video_learning_tpu_torch.parallel import launch
         self.launch = launch
         with open(os.path.join(folder, "val12.json")) as f:
             doc = json.load(f)
@@ -5764,27 +5794,28 @@ def conv1_lowerings(results):
     torch.cuda.empty_cache()
 
 
-def variant_engine(name):
+def variant_engine(name, mesh=None):
     """The 128-clip bf16 training engine of phase 5 with ``name``'s
-    option (``STEP_VARIANTS``; remat: ``settings.remat``)."""
+    option (``STEP_VARIANTS``; remat: ``settings.remat``), on ``mesh``
+    if given."""
     settings, model = training_flagship(TRAIN_CLIPS, "bfloat16")
     settings.remat = name == "remat"
     return Train(settings, settings.feeder, model, seed=0, device="cuda",
-                 **STEP_VARIANTS[name])
+                 mesh=mesh, **STEP_VARIANTS[name])
 
 
-def variant_steps(name, feeds):
+def variant_steps(name, feeds, mesh=None):
     """Phase 5's three steps (eager; eager, then the capture; a replay)
-    of ``name``'s engine with the plain versions locked out, each
-    launching ``VARIANT_WANT[name]`` (every LRN launch the vector design),
-    every metric finite; the eager step's peak memory above what was
-    allocated before the engine was built, and the graph pool's bytes.
-    Returns (engine, record)."""
+    of ``name``'s engine (on ``mesh`` if given) with the plain versions
+    locked out, each launching ``VARIANT_WANT[name]`` (every LRN launch
+    the vector design), every metric finite; the eager step's peak
+    memory above what was allocated before the engine was built, and the
+    graph pool's bytes.  Returns (engine, record)."""
     want = VARIANT_WANT[name]
     torch.cuda.synchronize()
     before = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    engine = variant_engine(name)
+    engine = variant_engine(name, mesh)
     rec = {"launches": []}
     for i, feed in enumerate((feeds[0], feeds[1], feeds[0])):
         metrics, launched = locked_step(engine, feed)
@@ -5931,7 +5962,7 @@ def phase_conv1_remat(results):
 
 
 def phase15_child(out_path):
-    """Phase 15 in a process of its own (``run_phase15``): the kernels
+    """Phase 15 in a process of its own (``run_child_phase``): the kernels
     loaded, TF32 off as phase 2 leaves it, replays metered; writes its
     results to ``out_path`` as JSON."""
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -5945,20 +5976,416 @@ def phase15_child(out_path):
     return 0
 
 
-def run_phase15(results, folder):
-    """Phase 15 in a child process: phases 12 and 14 ran other processes
-    on the card, after which this process's profiler loses kernel
-    records of the replays that phase 15 counts."""
-    out_path = os.path.join(folder, "phase15.json")
+def run_child_phase(results, folder, n):
+    """Phase ``n`` (15 or 16) in a child process, ``phase<n>_child``:
+    phases 12 and 14 ran other processes on the card, after which this
+    process's profiler loses kernel records of the replays that the
+    phase counts; phase 16's NCCL group ends with its process."""
+    out_path = os.path.join(folder, "phase%d.json" % n)
     here = os.path.dirname(os.path.abspath(__file__))
     rc = subprocess.run(
         [sys.executable, "-c", "import sys, chip_smoke as cs; "
-         "sys.exit(cs.phase15_child(sys.argv[1]))", out_path],
+         "sys.exit(cs.phase%d_child(sys.argv[1]))" % n, out_path],
         cwd=here, timeout=900).returncode
     if rc != 0:
-        raise AssertionError("phase 15 exited with %d" % rc)
+        raise AssertionError("phase %d exited with %d" % (n, rc))
     with open(out_path) as f:
         results.update(json.load(f))
+
+
+# ------------------------------------------------------------- phase 16
+# CUDA graphs over an NCCL group.  The card holds one rank (NCCL refuses
+# two ranks on one device), so the mesh below issues every collective of
+# the port's programs on a one-rank NCCL group.
+NCCL_SERVE_MODES = (None, "int8", "int8_static")
+
+
+class OneRankNcclMesh(Mesh):
+    """The mesh of a one-rank NCCL group with every collective run.  On
+    a world of one the port skips its collectives (``Mesh``'s methods,
+    ``use``, ``Model.apply``, the entry points' gates); this mesh reports
+    two ranks so that those shortcuts pass, keeps its data and model
+    axes at 1 (a rank's rows and slices are the whole), and issues each
+    collective on the world group whatever the axis size.  ``calls``
+    counts them: "eager" those that ran at once, "captured" those that a
+    CUDA graph capture recorded (they run at every replay)."""
+
+    def __init__(self):
+        super().__init__({"data": 1, "model": 1})
+        self.size = 2
+        self.calls = {"eager": collections.Counter(),
+                      "captured": collections.Counter()}
+
+    def _count(self, name):
+        kind = ("captured" if torch.cuda.is_current_stream_capturing()
+                else "eager")
+        self.calls[kind][name] += 1
+
+    def _reduce(self, name, t, op):
+        self._count(name)
+        dist.all_reduce(t, op=op)
+        return t
+
+    def data_sum(self, t):
+        return self._reduce("data_sum", t, dist.ReduceOp.SUM)
+
+    def data_max(self, t):
+        return self._reduce("data_max", t, dist.ReduceOp.MAX)
+
+    def model_sum(self, t):
+        return self._reduce("model_sum", t, dist.ReduceOp.SUM)
+
+    def world_max(self, t):
+        return self._reduce("world_max", t, dist.ReduceOp.MAX)
+
+    def model_gather(self, t, dim=-1):
+        self._count("model_gather")
+        return self._gather(t, dim, None, 1)
+
+    def data_gather(self, t, dim=0):
+        self._count("data_gather")
+        return self._gather(t, dim, None, 1)
+
+
+def captured_by(mesh, fn):
+    """``fn()`` and the collectives that the captures during it recorded,
+    {name: calls}."""
+    before = collections.Counter(mesh.calls["captured"])
+    out = fn()
+    return out, dict(mesh.calls["captured"] - before)
+
+
+def _holds(what, captured, want):
+    """Fails unless ``what``'s capture recorded each collective of
+    ``want`` at least as often as ``want`` says."""
+    log("  %s: its capture recorded the collectives %s" % (what, captured))
+    if any(captured.get(k, 0) < n for k, n in want.items()):
+        raise AssertionError("%s: the capture recorded %s, expected at "
+                             "least %s" % (what, captured, want))
+
+
+def _bitwise(what, equal):
+    if not equal:
+        raise AssertionError("%s: the replay is not bitwise equal to the "
+                             "eager program on the same mesh" % what)
+
+
+def nccl_gathers(mesh):
+    """The list form of all_gather (``Mesh._gather``) inside a capture:
+    its parts are allocated on the capture's stream, from the program's
+    pool, and a replay gathers the new input."""
+    cache = graphs_mod.ProgramCache("the mesh's gathers")
+    x = torch.arange(4096, dtype=torch.float32, device="cuda")
+
+    def gathers(inputs):
+        y = inputs["x"] * 2
+        return mesh.model_gather(y, -1) + mesh.data_gather(y, 0)
+
+    _, captured = captured_by(mesh, lambda: cache.run("gathers", gathers,
+                                                      {"x": x}))
+    _holds("model_gather + data_gather", captured,
+           {"model_gather": 1, "data_gather": 1})
+    got = cache.run("gathers", gathers, {"x": x + 1})
+    if not torch.equal(got, (x + 1) * 4):
+        raise AssertionError("a replay of the gathers gave other values")
+    (program, _), = cache.programs().values()
+    return {"captured": captured, "pool_bytes": program.pool_bytes}
+
+
+def nccl_steps(mesh):
+    """Phase 11's float32 8-clip steps (dropout 0.5) in its two
+    configurations on the mesh: 3 replays after a restore bitwise equal
+    to 3 eager steps on the mesh, and against the eager steps without a
+    mesh bitwise or within phase 11's rule; then compile_scan_steps(3)
+    held the same way (the Adam configuration)."""
+    out = {}
+    for name, opts in GRAPH_CONFIGS.items():
+        plain, _, processor = graph_engines(opts, with_graphed=False)
+        (eager, graphed, _), captured = captured_by(
+            mesh, lambda: graph_engines(opts, mesh=mesh))
+        _holds("float32 step (%s)" % name, captured, {"data_sum": 1})
+        start = eager.state_dict()
+        feeds = [training_feed(processor, GRAPH_CLIPS, 50 + s, "cuda")
+                 for s in range(GRAPH_STEPS)]
+        plain_equal = True
+        for i, feed in enumerate(feeds):
+            mp = plain.run_step(dict(feed))
+            me = eager.run_step(dict(feed))
+            mg = graphed.run_step(dict(feed))
+            _bitwise("%s step %d metrics" % (name, i),
+                     metrics_agree("%s step %d" % (name, i), me, mg))
+            plain_equal &= metrics_agree("%s step %d, no mesh" % (name, i),
+                                         mp, mg)
+        _bitwise("%s state" % name,
+                 states_agree(name, eager, graphed, start)[0])
+        bitwise, worst = states_agree(name + ", no mesh", plain, graphed,
+                                      start)
+        log("  float32 %d-clip step, %s, on the NCCL mesh: %d replays after "
+            "a restore bitwise equal to the eager steps on the mesh; against "
+            "the eager steps without a mesh: metrics bitwise %s, state "
+            "bitwise %s (worst %.3g of an update)"
+            % (GRAPH_CLIPS, name, GRAPH_STEPS, plain_equal, bitwise, worst))
+        row = {"captured": captured, "vs_no_mesh_metrics_bitwise":
+               bool(plain_equal), "vs_no_mesh_state_bitwise": bitwise,
+               "vs_no_mesh_worst_share_of_update": worst}
+        if name == "adam_ema_watch":
+            row["scan"] = nccl_scan(mesh, plain, eager, graphed, feeds[0])
+        out[name] = row
+        del plain, eager, graphed
+        torch.cuda.empty_cache()
+    return out
+
+
+def nccl_scan(mesh, plain, eager, graphed, feed):
+    """compile_scan_steps(GRAPH_STEPS) as one graph on the mesh against
+    the eager loop on the mesh (bitwise) and without one (phase 11's
+    rule), from one state."""
+    _, captured = captured_by(mesh, lambda: graphed.compile_scan_steps(
+        GRAPH_STEPS)(dict(feed)))                  # eager, then the capture
+    _holds("compile_scan_steps(%d)" % GRAPH_STEPS, captured,
+           {"data_sum": GRAPH_STEPS})
+    start = eager.state_dict()
+    graphed.load_state_dict(start)
+    plain.load_state_dict(start)
+    mp = plain.compile_scan_steps(GRAPH_STEPS)(dict(feed))
+    me = eager.compile_scan_steps(GRAPH_STEPS)(dict(feed))
+    mg = graphed.compile_scan_steps(GRAPH_STEPS)(dict(feed))
+    program, _ = train_program(graphed, ("scan", GRAPH_STEPS))
+    if program.replays != 1:
+        raise AssertionError("the scan ran %d replays" % program.replays)
+    _bitwise("compile_scan_steps metrics",
+             metrics_agree("compile_scan_steps", me, mg))
+    _bitwise("compile_scan_steps state",
+             states_agree("compile_scan_steps", eager, graphed, start)[0])
+    plain_equal = metrics_agree("compile_scan_steps, no mesh", mp, mg)
+    bitwise, worst = states_agree("compile_scan_steps, no mesh", plain,
+                                  graphed, start)
+    log("  compile_scan_steps(%d) as one graph on the NCCL mesh: bitwise "
+        "equal to the eager loop on the mesh; against the loop without a "
+        "mesh: metrics bitwise %s, state bitwise %s (worst %.3g of an "
+        "update)" % (GRAPH_STEPS, plain_equal, bitwise, worst))
+    return {"captured": captured, "vs_no_mesh_metrics_bitwise":
+            bool(plain_equal), "vs_no_mesh_state_bitwise": bitwise,
+            "vs_no_mesh_worst_share_of_update": worst}
+
+
+def nccl_train_step(mesh):
+    """Phase 5's 128-clip bf16 step, graphed, on the mesh and without
+    one (phase 15's ``variant_steps``: eager; eager, then the capture; a
+    replay counted by the profiler), then the two graphed steps timed in
+    turns (no mesh, mesh, mesh, no mesh)."""
+    settings, _ = training_flagship(TRAIN_CLIPS, "bfloat16")
+    processor = settings.feeder.datasets[0].processor
+    feeds = [training_feed(processor, TRAIN_CLIPS, s, "cuda")
+             for s in (1, 2)]
+    log("  the %d-clip bf16 step without a mesh:" % TRAIN_CLIPS)
+    plain, _ = variant_steps("default", feeds)
+    log("  the %d-clip bf16 step on the NCCL mesh:" % TRAIN_CLIPS)
+    (engine, rec), captured = captured_by(
+        mesh, lambda: variant_steps("default", feeds, mesh=mesh))
+    _holds("the %d-clip bf16 step" % TRAIN_CLIPS, captured, {"data_sum": 1})
+    turn = [0]
+
+    def run(eng):
+        eng.run_step(dict(feeds[turn[0] % 2]))
+        turn[0] += 1
+
+    ms = {"no_mesh": [], "mesh": []}
+    for k, eng in (("no_mesh", plain), ("mesh", engine), ("mesh", engine),
+                   ("no_mesh", plain)):
+        ms[k].append(timed_s(lambda: run(eng), 3) * 1e3)
+    log("  graphed %d-clip bf16 step on the NCCL mesh: %s ms beside %s ms "
+        "without a mesh; a replay ran %s (profiler) (%s)"
+        % (TRAIN_CLIPS, " / ".join("%.2f" % t for t in ms["mesh"]),
+           " / ".join("%.2f" % t for t in ms["no_mesh"]), rec["launches"][2],
+           gpu_line()))
+    del plain, engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(rec, captured=captured, graphed_ms=ms["mesh"],
+                no_mesh_graphed_ms=ms["no_mesh"])
+
+
+def _logits_rule(what, got, want):
+    """Bitwise, or within phase 11's 1e-5 x max(1, max|logit|) with the
+    difference printed; returns (bitwise, share of the scale)."""
+    scale = max(1.0, float(np.abs(want).max()))
+    err = float(np.abs(got - want).max()) / scale
+    bitwise = bool(np.array_equal(got, want))
+    if not bitwise:
+        log("  %s: not bitwise equal; the replay differs from the eager "
+            "call by %.3g of the logit scale" % (what, err))
+    if not err <= 1e-5:
+        raise AssertionError("%s: graphed logits differ by %.3g of the "
+                             "scale" % (what, err))
+    return bitwise, err
+
+
+def nccl_serving(mesh):
+    """The classifier's serving module at buckets 1, 8 and 32 in float32,
+    int8 and int8_static on the mesh: each bucket's first call (eager,
+    then the capture) and a replay against the eager module on the same
+    mesh; the int8 capture holds the amax's data_max."""
+    settings, model = flagship(num_classes=CLASSES, fpc=FPC, image=IMAGE,
+                               lstm=(HIDDEN, LAYERS), raw_hw=RAW_HW,
+                               mean_scalars=SERVING_MEAN,
+                               imgproc=SERVING_IMGPROC,
+                               compute_dtype="float32")
+    processor = settings.feeder.datasets[0].processor
+    params = model.init_params(seed=0, device="cuda")
+    calib = device_frames(processor, INT8_CALIB_CLIPS * FPC, 70, "cuda")
+    frames, prm = device_frames(processor, max(GRAPH_BUCKETS) * FPC, 72,
+                                "cuda")
+    out = {}
+    for mode in NCCL_SERVE_MODES:
+        kw = {"calib_feed": calib} if mode == "int8_static" else {}
+        graphed = serving.ServingModule(model, params,
+                                        batch_items=GRAPH_BUCKETS,
+                                        device="cuda", quantize=mode,
+                                        mesh=mesh, **kw)
+        if mode == "int8_static":
+            kw = {"act_ranges": graphed.meta["act_ranges"]}
+        eager = serving.ServingModule(model, params,
+                                      batch_items=GRAPH_BUCKETS,
+                                      device="cuda", quantize=mode,
+                                      graphs=False, mesh=mesh, **kw)
+        if graphed.graphs is None or graphed.mesh is not mesh:
+            raise AssertionError("the module on the NCCL mesh is not graphed")
+        rows = {}
+        for clips in GRAPH_BUCKETS:
+            n = clips * FPC
+            what = "%s bucket %d" % (mode or "float32", clips)
+            _, captured = captured_by(
+                mesh, lambda: graphed(frames[:n], prm[:n]))
+            _holds(what, captured,
+                   {"data_max": 1} if mode == "int8" else {})
+            bitwise, err = _logits_rule(what, graphed(frames[:n], prm[:n]),
+                                        eager(frames[:n], prm[:n]))
+            rows[clips] = {"captured": captured, "bitwise": bitwise,
+                           "rel_err": err}
+        log("  %s serving on the NCCL mesh, buckets %s: replays bitwise "
+            "equal to the eager calls %s" % (
+                mode or "float32", GRAPH_BUCKETS,
+                {c: r["bitwise"] for c, r in rows.items()}))
+        out[mode or "float32"] = rows
+        del graphed, eager
+    torch.cuda.empty_cache()
+    return out
+
+
+def nccl_validation(mesh):
+    """``Validation.run_forward`` on the mesh, graphed against eager: the
+    float32 classifier forward of one GRAPH_CLIPS-clip batch (phase 11's
+    rule), and the greedy and beam-4 decodes of CAPTION_ITEMS items at
+    phase 6's width (tokens equal, or from a step within 1e-4 of a tie:
+    phase 6's rule)."""
+    settings, model = training_flagship(GRAPH_CLIPS, "float32")
+    processor = settings.feeder.datasets[0].processor
+    params = model.init_params(seed=0, device="cuda")
+    frames, prm = device_frames(processor, GRAPH_CLIPS * FPC, 74, "cuda")
+    feed = {"frames_main_input": frames,
+            "frames_main_input/proc_params": prm}
+    graphed = val_mod.Validation(settings, model, device="cuda", mesh=mesh)
+    eager = val_mod.Validation(settings, model, device="cuda", graphs=False,
+                               mesh=mesh)
+    _, captured = captured_by(mesh, lambda: graphed.run_forward(
+        params, dict(feed)))
+    _holds("the Validation forward", captured, {})
+    bitwise, err = _logits_rule(
+        "the Validation forward", graphed.run_forward(params, dict(feed)),
+        eager.run_forward(params, dict(feed)))
+    out = {"forward": {"captured": captured, "bitwise": bitwise,
+                       "rel_err": err}}
+    del params, graphed, eager
+    s32, m32 = caption_flagship(batch_size=CAPTION_ITEMS,
+                                compute_dtype="float32")
+    params = m32.init_params(seed=0, device="cuda")
+    dset = m32.caption_dataset
+    frames, prm = device_frames(dset.processor, CAPTION_ITEMS, 60, "cuda")
+    feed = {"frames_main_input": frames,
+            "frames_main_input/proc_params": prm}
+    pre = make_preprocessor(dset.processor, out_dtype=torch.float32,
+                            device="cuda")
+    ref = decode_margins(m32, params, {"frames_main_input": pre(frames, prm)},
+                         dset.vocabulary.index("EOS"))
+    graphed = val_mod.Validation(s32, m32, device="cuda", mesh=mesh)
+    eager = val_mod.Validation(s32, m32, device="cuda", graphs=False,
+                               mesh=mesh)
+    s32.captioning.beam_width = BEAM
+    for search, key in (("max", "greedy"), ("beam", "beam")):
+        s32.captioning.caption_search = search
+        _, captured = captured_by(mesh, lambda: graphed.run_forward(
+            params, dict(feed), decode=True))
+        _holds("the %s decode" % key, captured, {})
+        ids = graphed.run_forward(params, dict(feed), decode=True)
+        diff = first_difference(ids, eager.run_forward(params, dict(feed),
+                                                       decode=True))
+        if diff is not None and not ref["tie_" + key](*diff):
+            raise AssertionError("graphed %s tokens on the mesh differ at "
+                                 "a decided step %s" % (key, diff))
+        log("  float32 %s decode of %d items on the NCCL mesh, graphed vs "
+            "eager: tokens %s" % (key, CAPTION_ITEMS, "equal" if diff is None
+                                  else "differ first at item %d step %d, "
+                                  "within a tie" % diff))
+        out[key] = {"captured": captured, "first_difference": diff}
+    s32.captioning.caption_search = "max"
+    del params, graphed, eager
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_nccl_graphs(results):
+    """Phase 16: CUDA graphs over a one-rank NCCL group, in float32 with
+    TF32 off and cuDNN deterministic where it compares."""
+    log("phase 16: CUDA graphs over a one-rank NCCL group (%s; NCCL %s)"
+        % (gpu_line(), ".".join(map(str, torch.cuda.nccl.version()))))
+    t0 = time.monotonic()
+    mesh = OneRankNcclMesh()
+    out = {"backend": dist.get_backend(),
+           "nccl": list(torch.cuda.nccl.version())}
+    if mesh_mod.graphs_on_mesh(mesh, None, "phase 16") is not None:
+        raise AssertionError("an NCCL mesh does not keep graphs' default")
+    out["gathers"] = nccl_gathers(mesh)
+    _float32_exact()
+    try:
+        out["steps"] = nccl_steps(mesh)
+        out["serving"] = nccl_serving(mesh)
+        out["validation"] = nccl_validation(mesh)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    out["train_step"] = nccl_train_step(mesh)
+    log("  not shown with one rank: the model axis's column split "
+        "(Model.apply's sharding.mark, the clip norm's model_sum, "
+        "model_gather of split leaves) needs a model axis of 2 or more, "
+        "and so two cards")
+    out["collectives"] = {k: dict(v) for k, v in mesh.calls.items()}
+    log("  collectives: %s" % out["collectives"])
+    out["phase_s"] = time.monotonic() - t0
+    log("  phase 16's checks took %.1f s" % out["phase_s"])
+    results["nccl_graphs"] = out
+
+
+def phase16_child(out_path):
+    """Phase 16 in a process of its own (``run_child_phase``), which
+    joins a one-rank NCCL group bound to the card and leaves it at the
+    end."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _build.library()
+    install_meter()
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    dist.init_process_group("nccl", init_method="tcp://localhost:%d"
+                            % launch.free_port(), world_size=1, rank=0,
+                            device_id=device)
+    try:
+        results = {}
+        phase_nccl_graphs(results)
+    finally:
+        dist.destroy_process_group()
+    with open(out_path, "w") as f:
+        json.dump(results, f)
+    return 0
 
 
 def kernel_entry(name, source, replaces, launches, cases, main_cases):
@@ -6066,9 +6493,13 @@ def main(argv=None):
         gc.collect()
         torch.cuda.empty_cache()
         t0 = time.monotonic()
-        run_phase15(results, folder)
+        run_child_phase(results, folder, 15)
         log("  phase 15 took %.1f s (%.1f s in its process's phase)"
             % (time.monotonic() - t0, results["conv1_remat_phase_s"]))
+        t0 = time.monotonic()
+        run_child_phase(results, folder, 16)
+        log("  phase 16 took %.1f s (%.1f s in its process's phase)"
+            % (time.monotonic() - t0, results["nccl_graphs"]["phase_s"]))
     finally:
         shutil.rmtree(folder, ignore_errors=True)
 

@@ -7,11 +7,15 @@ without the repository's JAX test configuration:
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 """
 
+import collections
+
 import pytest
 import torch
+import torch.distributed as dist
 
 from video_learning_tpu_torch.ops import lrn as lrn_mod
 from video_learning_tpu_torch.ops import lstm_step as lstm_mod
+from video_learning_tpu_torch.parallel.mesh import Mesh
 
 
 @pytest.fixture
@@ -579,3 +583,88 @@ def test_conv1_dw_shifted_takes_frames_at_a_2_byte_offset(gen, dtype):
     assert xu.is_contiguous() and xu.data_ptr() % 16 != 0
     assert torch.equal(c1.conv1_dw_shifted(xu, gout),
                        c1.conv1_dw_shifted(x, gout))
+
+
+class OneRankNcclMesh(Mesh):
+    """The mesh of a one-rank NCCL group that reports two ranks, so that
+    the port's one-rank shortcuts pass, and runs each reduction on the
+    world group, counting those that a capture records (``chip_smoke.py``
+    phase 16's mesh)."""
+
+    def __init__(self):
+        super().__init__({"data": 1, "model": 1})
+        self.size = 2
+        self.captured = collections.Counter()
+
+    def _reduce(self, name, t, op):
+        if torch.cuda.is_current_stream_capturing():
+            self.captured[name] += 1
+        dist.all_reduce(t, op=op)
+        return t
+
+    def data_sum(self, t):
+        return self._reduce("data_sum", t, dist.ReduceOp.SUM)
+
+    def data_max(self, t):
+        return self._reduce("data_max", t, dist.ReduceOp.MAX)
+
+    def model_sum(self, t):
+        return self._reduce("model_sum", t, dist.ReduceOp.SUM)
+
+
+@pytest.mark.cuda
+def test_graphed_step_on_a_one_rank_nccl_group_equals_eager(gen):
+    """A float32 step (dropout 0.5, TF32 off, cuDNN deterministic) on a
+    one-rank NCCL mesh: graphs default to on there, the capture holds the
+    step's data_sum, and a replay after a restore gives the eager step's
+    metrics and state bit for bit."""
+    import numpy as np
+
+    from video_learning_tpu_torch.flagship import flagship
+    from video_learning_tpu_torch.parallel import launch
+    from video_learning_tpu_torch.train import WARMUP_STEPS, Train
+
+    prev = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32,
+            torch.backends.cudnn.deterministic)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    device = torch.device("cuda", 0)
+    dist.init_process_group("nccl", init_method="tcp://localhost:%d"
+                            % launch.free_port(), world_size=1, rank=0,
+                            device_id=device)
+    try:
+        mesh = OneRankNcclMesh()
+        engines = []
+        for graphs in (False, None):
+            settings, model = flagship(compute_dtype="float32")
+            settings.train.dropout_keep_prob = 0.5
+            engines.append(Train(settings, settings.feeder, model, seed=0,
+                                 device="cuda", graphs=graphs, mesh=mesh))
+        eager, graphed = engines
+        assert graphed.graphs and not eager.graphs
+        rng = np.random.RandomState(31)
+        feeds = [{"frames_main_input": (rng.randn(8, 67, 67, 3) * 60)
+                  .astype(np.float32),
+                  "labels": np.eye(16, dtype=np.int32)[rng.randint(0, 16, 2)]}
+                 for _ in range(WARMUP_STEPS + 1)]
+        for feed in feeds[:WARMUP_STEPS]:
+            graphed.run_step(dict(feed))
+        assert mesh.captured == {"data_sum": 1}
+        graphed.load_state_dict(eager.state_dict())
+        me = eager.run_step(dict(feeds[-1]))
+        mg = graphed.run_step(dict(feeds[-1]))
+        (program, _), = graphed.graph_cache.programs().values()
+        assert program.replays == 1
+        assert mg == me
+        se, sg = eager.state_dict(), graphed.state_dict()
+        for part in ("params", "opt_state_leaves"):
+            a, b = se[part], sg[part]
+            for k in (a if isinstance(a, dict) else range(len(a))):
+                assert torch.equal(a[k], b[k]), (part, k)
+    finally:
+        dist.destroy_process_group()
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32,
+         torch.backends.cudnn.deterministic) = prev

@@ -15,7 +15,12 @@ the same parameter slices and different rows).
   ``LOCAL_RANK``, ``MASTER_ADDR`` and ``MASTER_PORT``): NCCL on CUDA,
   gloo on the CPU, gloo on CUDA only when asked for (ranks that share a
   card: NCCL refuses two ranks on one device).  A world of one rank
-  joins nothing.
+  joins nothing.  An NCCL group is bound to the rank's card, so its
+  communicator exists before any CUDA graph capture.
+* ``graphs_on_mesh`` decides whether an entry point may run CUDA graphs
+  on a mesh, from the group's backend: NCCL's collectives are work on
+  the card's streams, which a capture records and a replay runs again;
+  gloo's run on the host, which a capture cannot reach.
 * ``make_mesh`` builds (once per shape) the ``Mesh`` of the run config's
   ``mesh_shape``, with the JAX defaults (``model`` 1, ``data`` the rest);
   a shape that does not fill the world raises.
@@ -31,7 +36,10 @@ the same parameter slices and different rows).
   every rank (``tools/serve`` hands each request batch to the ranks so).
 
 Only ``all_reduce``, the list form of ``all_gather``, ``broadcast`` and
-``barrier`` are used: gloo offers them on CUDA tensors too.
+``barrier`` are used: gloo offers them on CUDA tensors too.  Inside a
+captured program only ``all_reduce`` and ``all_gather`` run; their
+outputs are allocated on the capture's stream, so they come from the
+program's memory pool.
 """
 
 import contextlib
@@ -106,8 +114,11 @@ def init_distributed(device="cuda", backend=None):
     if missing:
         error("WORLD_SIZE=%d but %s unset: start the ranks with python "
               "-m torch.distributed.run" % (size, missing))
+    # bound to its card, NCCL makes the communicator now: a capture cannot
+    # record its creation
     dist.init_process_group(backend, init_method="env://", world_size=size,
-                            rank=int(os.environ["RANK"]))
+                            rank=int(os.environ["RANK"]),
+                            device_id=dev if backend == "nccl" else None)
     info("Joined a %s group of %d ranks as rank %d on %s"
          % (backend, size, dist.get_rank(), dev))
     return dev
@@ -220,6 +231,24 @@ class Mesh:
     def barrier(self):
         if self.size > 1:
             dist.barrier()
+
+
+def graphs_on_mesh(mesh, graphs, who):
+    """``graphs`` as ``who`` (an entry point) may take it on ``mesh``.
+    Off a mesh, or on one rank, it is unchanged.  On an NCCL group it is
+    unchanged too (None: on for a CUDA device, as on one card): NCCL's
+    collectives run on the card's streams, so a CUDA graph captures them
+    with the kernels around them.  On gloo, whose collectives run on the
+    host, ``graphs=True`` raises and None becomes False."""
+    if mesh is None or mesh.size <= 1 or dist.get_backend() == "nccl":
+        return graphs
+    if graphs:
+        error("%s: graphs=True on a mesh of %d ranks over gloo: gloo's "
+              "collectives run on the host, which a CUDA graph cannot "
+              "capture (an NCCL group's run on the card and can); the "
+              "mesh runs the eager program (graphs=False)"
+              % (who, mesh.size))
+    return False
 
 
 _MESHES = {}

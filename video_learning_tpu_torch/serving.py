@@ -61,7 +61,9 @@ data group, so every rank returns the whole result, as JAX's replicated
 ``out_shardings`` give it.  Every bucket's input rows must divide the
 data axis.  The meta then records ``mesh`` ({"data", "model"}), and
 ``load`` of such an artifact needs an initialised group of that shape.
-Graphs are off on a mesh.
+On an NCCL group each bucket's rows run as a graph replay that holds the
+forward's collectives (the int8 amax's MAX over the data group), and
+the gather of the outputs runs after it; a gloo mesh runs eagerly.
 """
 
 import io
@@ -200,24 +202,20 @@ class ServingModule:
     ``run_id`` (the run they come from) are recorded in the meta.
     ``graphs`` (default: on for a CUDA device) runs every bucket as a
     CUDA graph replay.  ``mesh`` serves over a mesh of ranks (module
-    docstring), where ``graphs=True`` raises."""
+    docstring): graphed on an NCCL group, while on gloo ``graphs=True``
+    raises."""
 
     def __init__(self, model, params, batch_items=8, device="cuda",
                  quantize=None, calib_feed=None, act_ranges=None,
                  ema=False, run_id=None, graphs=None, mesh=None):
         self.device = resolve_device(device)
         self.mesh = mesh if mesh is not None and mesh.size > 1 else None
-        if self.mesh is not None:
-            if graphs:
-                error("ServingModule: graphs=True on a mesh of %d ranks: "
-                      "gloo collectives run on the host, which a CUDA "
-                      "graph cannot capture (graphs=False)"
-                      % self.mesh.size)
-            graphs = False
+        graphs = mesh_mod.graphs_on_mesh(self.mesh, graphs,
+                                         "ServingModule")
         use = self.device.type == "cuda" if graphs is None else bool(graphs)
         if use and self.device.type != "cuda":
             error("ServingModule: graphs=True needs a CUDA device")
-        self.graphs = ForwardGraphs() if use else None
+        self.graphs = ForwardGraphs(self.mesh) if use else None
         self.model = model
         self.params = _to_device(params, self.device)
         sizes = batch_items if isinstance(batch_items, (list, tuple)) \
@@ -348,12 +346,9 @@ class ServingModule:
         tensors; a captioner decodes.  A graph replay when graphs are on,
         but for the calibration forward (``calib_taps``)."""
         decode = self.model.caption_dataset is not None
-        if self.mesh is not None:
-            return serving_forward(self.model, self._pre, params, feed,
-                                   decode=decode, mesh=self.mesh, **kw)
         if self.graphs is None or "calib_taps" in kw:
             return serving_forward(self.model, self._pre, params, feed,
-                                   decode=decode, **kw)
+                                   decode=decode, mesh=self.mesh, **kw)
         return self.graphs(self.model, self._pre, params, feed,
                            decode=decode, **kw)
 

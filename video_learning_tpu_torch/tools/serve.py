@@ -55,7 +55,11 @@ whole batch.  Rank 0 binds the server and runs the batcher; every device
 call it makes goes through ``MeshDispatch``, which broadcasts the call
 to the other ranks first, and those ranks follow (``MeshDispatch.follow``)
 until rank 0 broadcasts the stop at its shutdown (a SIGTERM drain
-included).  A world of one joins nothing and serves as above.
+included).  On an NCCL group every rank's module calls are graph
+replays, each rank capturing a bucket at its first call, in the order
+rank 0 dispatches them; the broadcasts of the header and the arrays are
+host control and run between the replays.  A world of one joins nothing
+and serves as above.
 """
 
 import argparse

@@ -1,7 +1,7 @@
 """Validate a pretrained ``bvlc_alexnet.npy`` against the port.
 
 The port's counterpart of ``video_learning_tpu/tools/validate_pretrained.py``,
-for a weights file that ``video_learning_tpu/models/get_alexnet_weights.sh``
+for a weights file that the port's ``models/get_alexnet_weights.sh``
 fetched (or a synthesized file of the same schema):
 
 1. **Schema check**: the exact bvlc layer set and shapes (the grouped
@@ -20,7 +20,8 @@ fetched (or a synthesized file of the same schema):
    crosses a rounding edge: pin each package's own.
 
 Usage:
-    bash video_learning_tpu/models/get_alexnet_weights.sh /data/bvlc_alexnet.npy
+    bash video_learning_tpu_torch/models/get_alexnet_weights.sh \\
+        /data/bvlc_alexnet.npy
     python -m video_learning_tpu_torch.tools.validate_pretrained \\
         /data/bvlc_alexnet.npy [--manifest M] [--no-sidecar] [--device cpu]
 """

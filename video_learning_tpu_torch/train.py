@@ -49,7 +49,8 @@ is the single-device step on the global batch up to float
 reassociation.  The global-norm clip counts a split gradient once (its
 squares summed over the model group).  ``state_dict`` gathers whole
 tensors and ``load_state_dict`` slices them, so checkpoints are those of
-one process.  Graphs are off on a mesh (see ``Train``).
+one process.  An NCCL mesh runs the step as a graph replay, collectives
+included; a gloo mesh runs it eagerly (see ``Train``).
 Dropout draws on the parameters' device from one persistent generator
 per micro-batch and pipeline, re-seeded before every step from
 ``fold_in(seed + 1, global_step)`` (then ``fold_in`` of the micro-batch
@@ -415,10 +416,13 @@ class Train:
     eager steps at each feed geometry; ``graphs=False`` keeps the eager
     step.  The CPU has no graphs.  ``mesh`` (default: ``make_mesh`` of
     ``settings.mesh_shape``, a world of one outside a process group)
-    trains on a (data x model) mesh (module docstring); there graphs
-    default to off and ``graphs=True`` raises: gloo's collectives run
-    on the host, which a CUDA graph cannot capture, and graphs over an
-    NCCL group have not been run on a machine with two or more cards.
+    trains on a (data x model) mesh (module docstring).  On an NCCL
+    mesh ``graphs`` defaults as on one card: the captured step holds its
+    collectives (the data group's sums, the model group's clip-norm sums
+    and gathers), which NCCL runs on the card's streams.  On a gloo mesh
+    graphs default to off and ``graphs=True`` raises: gloo's collectives
+    run on the host, which a CUDA graph cannot capture
+    (``parallel.mesh.graphs_on_mesh``).
 
     Every tensor of the state (parameters, moments, step counts, EMA,
     the device step counter) is created once and then only written in
@@ -433,15 +437,7 @@ class Train:
         self.device = resolve_device(device)
         self.mesh = mesh if mesh is not None else mesh_mod.make_mesh(
             getattr(settings, "mesh_shape", None))
-        if self.mesh.size > 1:
-            if graphs:
-                error("Train: graphs=True on a mesh of %d ranks: gloo "
-                      "collectives run on the host, which a CUDA graph "
-                      "cannot capture, and graphs over an NCCL group have "
-                      "not been verified on a machine with two or more "
-                      "cards; the mesh runs the eager step (graphs=False)"
-                      % self.mesh.size)
-            graphs = False
+        graphs = mesh_mod.graphs_on_mesh(self.mesh, graphs, "Train")
         self.graphs = (self.device.type == "cuda" if graphs is None
                        else bool(graphs))
         if self.graphs and self.device.type != "cuda":
@@ -656,7 +652,7 @@ class Train:
         equal micro-batches; the gradients of the masked loss sums are
         added up and divided by the total mask count at the end, which
         equals the full-batch masked mean up to float reassociation.  On
-        a data axis (with any ``accum_steps``) the sums are added over the
+        a mesh (with any ``accum_steps``) the sums are added over the
         data group before the division, so the count is the global
         batch's."""
         accum = self._accum
@@ -679,7 +675,7 @@ class Train:
             count = count + mask.sum()
             correct = correct + (_correct(logits.detach(), labels)
                                  * mask).sum()
-        if self.mesh.data > 1:
+        if self.mesh.size > 1:
             grads, loss_sum, count, correct = self._data_sum(
                 grads, loss_sum, count, correct)
         denom = count.clamp(min=1.0)
@@ -772,7 +768,7 @@ class Train:
         no value read back to the host: returns the metrics (loss, lr,
         grad_norm, accuracy, then the watched statistics) as one float32
         vector and advances every state tensor in place."""
-        if self._accum > 1 or self.mesh.data > 1:
+        if self._accum > 1 or self.mesh.size > 1:
             grads, loss, acc = self._step_micro_sums(feed)
         else:
             grads, loss, acc = self._step_mean(feed)
@@ -834,10 +830,10 @@ class Train:
         ``Train.compile_scan_steps``): on the card with graphs on, one
         CUDA graph (the first call at a feed geometry runs the steps
         eagerly and then captures them, later calls replay); on the CPU,
-        on a mesh or with graphs off, an eager loop.  Returns ``many(feed)`` ->
-        {metric: (num_steps,) float32 array}; each call advances
-        ``global_step`` by ``num_steps``, and each step's lr metric is the
-        schedule's at its own step.
+        on a gloo mesh or with graphs off, an eager loop.  Returns
+        ``many(feed)`` -> {metric: (num_steps,) float32 array}; each call
+        advances ``global_step`` by ``num_steps``, and each step's lr
+        metric is the schedule's at its own step.
 
         Dropout: JAX folds the step index into the call's key for each
         step.  Here the generators are seeded once per call, as

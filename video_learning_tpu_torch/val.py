@@ -40,7 +40,8 @@ places it once; the model-axis collectives run inside
 calibrated, are the MAX over the data group, the global batch's.  Only
 global rank 0 writes the chunk files and the caption JSON; the others
 keep their rows in memory, so every rank computes the same accuracies.
-Graphs are off on a mesh, as in ``Train``.
+On an NCCL mesh the forward runs as graph replays that hold its
+collectives; a gloo mesh runs it eagerly, as in ``Train``.
 """
 
 import json
@@ -88,16 +89,20 @@ class ForwardGraphs:
     through it.  A graph reads the parameters where they were at capture:
     they may change in place between calls (the live weights of a
     training run), and a tree at other addresses (the EMA, a re-quantized
-    tree) gets a program of its own."""
+    tree) gets a program of its own.  ``mesh``: this rank's forward on a
+    mesh of an NCCL group (``Model.apply(mesh=...)``), whose collectives
+    the programs hold."""
 
-    def __init__(self):
+    def __init__(self, mesh=None):
         self.cache = graphs_mod.ProgramCache("the serving forward")
+        self.mesh = mesh
 
     def __call__(self, model, preprocessors, params, feed, decode=False,
                  quantize=None):
         def forward(inputs):
             return serving_forward(model, preprocessors, params, inputs,
-                                   decode=decode, quantize=quantize)
+                                   decode=decode, quantize=quantize,
+                                   mesh=self.mesh)
 
         cap = model.settings.captioning if decode else None
         search = None if cap is None else (
@@ -119,8 +124,9 @@ class Validation:
     scoring alone.  ``graphs`` (default: on for a CUDA device) runs the
     forward as ``ForwardGraphs`` replays; ``graphs=False`` keeps it
     eager.  ``mesh`` (default: ``make_mesh`` of ``settings.mesh_shape``)
-    evaluates this rank's rows on a mesh (module docstring), where
-    ``graphs=True`` raises as in ``Train``."""
+    evaluates this rank's rows on a mesh (module docstring): graphed on
+    an NCCL group, while on gloo ``graphs=True`` raises as in
+    ``Train``."""
 
     def __init__(self, settings, model=None, device="cuda", graphs=None,
                  mesh=None):
@@ -133,15 +139,8 @@ class Validation:
         if model is not None:
             self.mesh = mesh if mesh is not None else mesh_mod.make_mesh(
                 getattr(settings, "mesh_shape", None))
-            if self.mesh.size > 1:
-                if graphs:
-                    error("Validation: graphs=True on a mesh of %d ranks: "
-                          "gloo collectives run on the host, which a CUDA "
-                          "graph cannot capture, and graphs over an NCCL "
-                          "group have not been verified on a machine with "
-                          "two or more cards (graphs=False)"
-                          % self.mesh.size)
-                graphs = False
+            graphs = mesh_mod.graphs_on_mesh(self.mesh, graphs,
+                                             "Validation")
         # only the forward needs a device: accumulation and scoring are
         # host numpy
         self.device = resolve_device(device) if model is not None else None
@@ -157,7 +156,7 @@ class Validation:
                if graphs is None else bool(graphs))
         if use and (self.device is None or self.device.type != "cuda"):
             error("Validation: graphs=True needs a model on a CUDA device")
-        self._graphs = ForwardGraphs() if use else None
+        self._graphs = ForwardGraphs(self.mesh) if use else None
         self.release_params()
         if model is not None:
             self._build_forward()
